@@ -1,0 +1,45 @@
+"""hpccg_tpu_torch -- the PyTorch/CUDA port of hpccg_tpu for an NVIDIA H100.
+
+The HPCCG mini-app's generated-stencil CG main path (reference:
+Dart120/HPCCG-SYCL), ported from the JAX package ``hpccg_tpu``, which stays
+beside it as the reference:
+
+- 27-point / 7-point stencil problem generation (ref generate_matrix.cpp)
+- the implicit stencil operator A x = 28 x - S(x) in plain torch
+- the reference CG recurrence with the scalars kept on the device
+  (ref HPCCG.cpp:312-402)
+- hand-written Hopper (sm_90a) CUDA kernels for the Pallas kernels on that
+  path: the stencil SpMV (with a fused p.Ap, or with the p-update folded
+  in), the fused x/r update with r.r, and the scalar finalize step
+- the YAML/JSON report (ref YAML_Doc, main.cpp)
+
+Layout, as in ``hpccg_tpu``:
+  models/     problem construction
+  ops/        vector ops, SpMV dispatch; ops/cuda the kernel wrappers
+  csrc/       the CUDA sources, built with nvcc at first use on a GPU
+  solver.py   CG solver and backends
+  convert.py  the JAX package's state, carried across as numpy
+  cli.py      command line and report
+  utils/      timing, report, checks
+
+The package imports torch and numpy, never jax.
+"""
+
+__version__ = "0.1.0"
+
+from hpccg_tpu_torch.config import ProblemConfig, SolverConfig, Stencil
+from hpccg_tpu_torch.models.stencil import generate_problem
+from hpccg_tpu_torch.operators import StencilOperator
+from hpccg_tpu_torch.solver import CGResult, cg_solve, make_cg
+
+__all__ = [
+    "ProblemConfig",
+    "SolverConfig",
+    "Stencil",
+    "StencilOperator",
+    "generate_problem",
+    "make_cg",
+    "cg_solve",
+    "CGResult",
+    "__version__",
+]

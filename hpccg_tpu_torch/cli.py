@@ -1,0 +1,271 @@
+"""Command line (ref main.cpp:99-324; ``hpccg_tpu.cli``, stencil mode).
+
+Usage:
+    python -m hpccg_tpu_torch nx ny nz [options]
+
+Generates the stencil problem on the device, runs the reference CG
+recurrence, prints the per-iteration residual lines and the YAML (or JSON)
+report with the JAX package's keys: Time/FLOPS/MFLOPS summaries and the FLOP
+model of main.cpp:224-227.
+
+Total is timed with CUDA events around a warm solve (the host clock on the
+CPU). SPARSEMV is slope-timed on K1; DDOT and WAXPBY on the plain torch ops,
+or, for ``pallas_fused``, WAXPBY on K4 (the fused x/r update with r.r) and
+DDOT left empty because it is fused into K3/K4. Each row is a per-kernel
+micro-benchmark scaled by the iteration count, not a component of Total.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+import torch
+
+NOT_PORTED_BACKENDS = (
+    "ell", "dia", "pallas_dd", "pallas_v1", "megakernel", "streamkernel", "collective",
+)
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="hpccg_tpu_torch",
+        description="HPCCG 3-D stencil conjugate gradient on PyTorch/CUDA",
+    )
+    ap.add_argument("dims", nargs="+", help="nx ny nz")
+    ap.add_argument("--stencil", type=int, default=27, choices=[27, 7])
+    ap.add_argument("--max-iter", type=int, default=150)
+    ap.add_argument("--tolerance", type=float, default=0.0)
+    ap.add_argument(
+        "--preset",
+        choices=["ref500", "ref150"],
+        help="ref500 = max_iter 500, tolerance 0 (main.cpp:187-188); ref150 = "
+        "max_iter 150 (main_old.cpp:166). Overrides --max-iter/--tolerance",
+    )
+    ap.add_argument("--dtype", default="float64", choices=["float64", "float32", "bfloat16"])
+    ap.add_argument("--mesh", default="1", metavar="N", help="only 1 is ported")
+    ap.add_argument(
+        "--backend",
+        default="auto",
+        choices=["auto", "stencil", "pallas", "pallas_fused", *NOT_PORTED_BACKENDS],
+        help="auto = pallas_fused on CUDA, stencil on the CPU",
+    )
+    ap.add_argument("--method", default="cg", choices=["cg", "cg1", "pipecg"])
+    ap.add_argument("--refine", type=int, default=0, metavar="N")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--json", action="store_true", help="emit JSON instead of YAML")
+    ap.add_argument("--quiet", action="store_true", help="suppress residual lines")
+    ap.add_argument("--skip-kernel-bench", action="store_true", help="skip per-kernel micro-benchmarks")
+    ap.add_argument("--check", action="store_true", help="report max|x - xexact| after the solve")
+    ap.add_argument(
+        "--validate",
+        action="store_true",
+        help="verify problem invariants before solving and fail fast on a non-finite result",
+    )
+    return ap
+
+
+def _not_ported(args) -> str | None:
+    """The first requested feature that waits for a later slice, if any."""
+    if len(args.dims) != 3 or not all(d.isdigit() for d in args.dims):
+        return "file mode"
+    if args.dtype == "bfloat16":
+        return "--dtype bfloat16"
+    if args.mesh != "1":
+        return f"--mesh {args.mesh}"
+    if args.method != "cg":
+        return f"--method {args.method}"
+    if args.refine:
+        return "--refine"
+    if args.backend in NOT_PORTED_BACKENDS:
+        return f"--backend {args.backend}"
+    return None
+
+
+def _kernel_bench(prob, backend_used, device):
+    """Seconds per call of (ddot, waxpby, spmv), slope-timed."""
+    from hpccg_tpu_torch.ops.cuda.fused_cg import update_x_r
+    from hpccg_tpu_torch.ops.cuda.stencil import spmv_stencil
+    from hpccg_tpu_torch.ops.vector import ddot, waxpby
+    from hpccg_tpu_torch.utils.timing import time_loop_slope
+
+    op = prob.A
+    bufs = [op.grid(prob.xexact.clone()), torch.empty_like(op.grid(prob.b))]
+
+    def spmv_loop(k):
+        for i in range(k):
+            spmv_stencil(op, bufs[i % 2], out=bufs[(i + 1) % 2])
+
+    t_spmv = time_loop_slope(spmv_loop, device=device)
+    if backend_used == "pallas_fused":
+        x, r, p, ap = (prob.b.clone() for _ in range(4))
+        alpha = torch.zeros((1,), dtype=prob.b.dtype, device=device)
+        part = None
+
+        def k4_loop(k):
+            nonlocal part
+            for _ in range(k):
+                part = update_x_r(x, r, p, ap, alpha, partials=part)[2]
+
+        return float("nan"), time_loop_slope(k4_loop, device=device), t_spmv
+
+    x_in, w = prob.b, prob.x0.clone()
+
+    def wax_loop(k):
+        nonlocal w
+        for _ in range(k):
+            w = waxpby(1.0, x_in, 0.5, w)
+
+    def dot_loop(k):
+        for _ in range(k):
+            ddot(x_in, x_in)
+
+    return (
+        time_loop_slope(dot_loop, device=device),
+        time_loop_slope(wax_loop, device=device),
+        t_spmv,
+    )
+
+
+def main(argv=None) -> int:
+    args = build_argparser().parse_args(argv)
+    if args.preset:
+        args.max_iter = {"ref500": 500, "ref150": 150}[args.preset]
+        args.tolerance = 0.0
+    missing = _not_ported(args)
+    if missing is not None:
+        print(f"error: {missing} is not yet ported to hpccg_tpu_torch", file=sys.stderr)
+        return 2
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("error: no CUDA device available; pass --device cpu to run on the CPU")
+
+    from hpccg_tpu_torch import ProblemConfig, generate_problem
+    from hpccg_tpu_torch.solver import make_cg, resolve_backend
+    from hpccg_tpu_torch.utils.report import Report
+    from hpccg_tpu_torch.utils.timing import elapsed, fence
+
+    dtype = {"float64": torch.float64, "float32": torch.float32}[args.dtype]
+    nx, ny, nz = (int(d) for d in args.dims)
+    cfg = ProblemConfig(nx, ny, nz, stencil=args.stencil, dtype=dtype)
+    prob = generate_problem(cfg, device)
+    backend_used = resolve_backend(args.backend, device)
+    solve = make_cg(prob.A, max_iter=args.max_iter, tolerance=args.tolerance, backend=args.backend)
+
+    if args.validate:
+        from hpccg_tpu_torch.utils.checks import validate_problem
+
+        print(f"# problem validated: {validate_problem(prob)}", file=sys.stderr)
+
+    # warm solve first (the kernel build and first launches are set-up, like
+    # the reference's post-setup chrono window, main.cpp:189-197)
+    solve(prob.b, prob.x0)
+    fence(device)
+    out = []
+    t_total = elapsed(lambda: out.append(solve(prob.b, prob.x0)), device)
+    res = out[0]
+
+    niters = int(res.niters)
+    normr = float(res.normr)
+    trace = res.trace.cpu().numpy()
+
+    check_residual = None
+    if args.check:
+        from hpccg_tpu_torch.ops.vector import compute_residual
+
+        check_residual = float(compute_residual(res.x, prob.xexact))
+        print(f"Difference between computed and exact = {check_residual:.6g}")
+
+    if args.validate:
+        from hpccg_tpu_torch.utils.checks import check_finite
+
+        check_finite(res)
+
+    if not args.quiet:
+        # ref HPCCG.cpp:342-344,356,372-373
+        print_freq = min(max(args.max_iter // 10, 1), 50)
+        print(f"Initial Residual = {trace[0]:.6g}")
+        for k in range(1, niters + 1):
+            if k % print_freq == 0 or k + 1 == args.max_iter:
+                print(f"Iteration = {k}   Residual = {trace[k]:.6g}")
+    print(f"Elapsed time: {t_total:.6g} s", file=sys.stderr)
+
+    # --- FLOP model (main.cpp:217-227) ---
+    fniters = float(niters)
+    fnrow = float(prob.total_nrow)
+    fnnz = float(prob.total_nnz_model)
+    fnops_ddot = fniters * 4 * fnrow
+    fnops_waxpby = fniters * 6 * fnrow
+    fnops_sparsemv = fniters * 2 * fnnz
+    fnops = fnops_ddot + fnops_waxpby + fnops_sparsemv
+
+    t_ddot = t_waxpby = t_spmv = float("nan")
+    if not args.skip_kernel_bench:
+        t_ddot1, t_wax1, t_spmv1 = _kernel_bench(prob, backend_used, device)
+        t_ddot = t_ddot1 * 2 * fniters
+        t_waxpby = t_wax1 * (1 if backend_used == "pallas_fused" else 3) * fniters
+        t_spmv = t_spmv1 * fniters
+
+    # --- report (main.cpp:230-304 schema, the JAX package's keys) ---
+    doc = Report("hpccg-tpu-torch", "1.0")
+    par = doc.add("Parallelism")
+    par.add("Number of mesh devices", 1)
+    par.add("Mesh axes", "(single device)")
+    par.add("Device kind", torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu")
+    par.add("Platform", "gpu" if device.type == "cuda" else "cpu")
+    par.add("MPI not enabled (single device)", "")
+
+    dims = doc.add("Dimensions")
+    dims.add("nx", nx)
+    dims.add("ny", ny)
+    dims.add("nz", nz)
+    dims.add("stencil", args.stencil)
+    dims.add("dtype", args.dtype)
+
+    doc.add("Number of iterations", niters)
+    doc.add("Final residual", normr)
+    if check_residual is not None:
+        doc.add("Difference between computed and exact", check_residual)
+    doc.add("#********** Performance Summary (times in sec) ***********", "")
+
+    ts = doc.add("Time Summary")
+    ts.add("Total   ", t_total)
+    ts.add("DDOT    ", t_ddot)
+    ts.add("WAXPBY  ", t_waxpby)
+    ts.add("SPARSEMV", t_spmv)
+    fused_note = (
+        "; WAXPBY times K4 (x/r update fused with r.r) once per iteration and "
+        "DDOT is fused into K3/K4"
+        if backend_used == "pallas_fused"
+        else ""
+    )
+    ts.add(
+        f"(DDOT/WAXPBY/SPARSEMV are slope-timed micro-benchmarks; SPARSEMV is the "
+        f"K1 stencil kernel; Total timed backend={backend_used}{fused_note})",
+        "",
+    )
+
+    fl = doc.add("FLOPS Summary")
+    fl.add("Total   ", fnops)
+    fl.add("DDOT    ", fnops_ddot)
+    fl.add("WAXPBY  ", fnops_waxpby)
+    fl.add("SPARSEMV", fnops_sparsemv)
+
+    def mflops(ops: float, t: float) -> float:
+        # t == 0 means "below timer resolution"; C++ prints inf (out.txt:33-37)
+        if t != t:  # skipped bench -> NaN
+            return float("nan")
+        return ops / t / 1e6 if t > 0 else float("inf")
+
+    mf = doc.add("MFLOPS Summary")
+    mf.add("Total   ", mflops(fnops, t_total))
+    mf.add("DDOT    ", mflops(fnops_ddot, t_ddot))
+    mf.add("WAXPBY  ", mflops(fnops_waxpby, t_waxpby))
+    mf.add("SPARSEMV", mflops(fnops_sparsemv, t_spmv))
+
+    print(doc.to_json() if args.json else doc.generate_yaml(), end="")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

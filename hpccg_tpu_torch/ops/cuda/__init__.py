@@ -1,0 +1,28 @@
+"""Wrappers, plain versions and the build of the hand-written CUDA kernels."""
+
+from __future__ import annotations
+
+import torch
+
+from hpccg_tpu_torch.config import SUPPORTED_DTYPES
+
+
+def check_tensors(ref: torch.Tensor, **tensors) -> None:
+    """Raise unless ``ref`` is float32/float64 and every named
+    ``(tensor, shape, dtype)`` (None: absent / any shape / ref's dtype) is on
+    ref's device, of that dtype and shape, and contiguous: what a kernel
+    takes."""
+    if ref.dtype not in SUPPORTED_DTYPES:
+        raise TypeError(f"the kernels take float32/float64, got {ref.dtype}")
+    for name, (t, shape, dtype) in tensors.items():
+        if t is None:
+            continue
+        dtype = ref.dtype if dtype is None else dtype
+        if t.device != ref.device:
+            raise ValueError(f"{name} is on {t.device}, expected {ref.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+        if shape is not None and tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")

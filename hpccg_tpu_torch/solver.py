@@ -1,0 +1,232 @@
+"""Conjugate-gradient solver (ref HPCCG.cpp:312-402; ``hpccg_tpu.solver``).
+
+The reference iteration, replicated exactly:
+
+    p = x0; Ap = A@p; r = b - Ap; rtrans = r.r; normr = sqrt(rtrans)
+    for k = 1 .. max_iter-1 while normr > tolerance:
+        if k == 1: p = r
+        else:      beta = rtrans_new/rtrans_old; p = r + beta*p
+        normr = sqrt(rtrans)                     (the printed residual)
+        Ap = A@p; alpha = rtrans / (p . Ap)
+        x += alpha*p; r -= alpha*Ap
+
+The scalars (alpha, beta, rtrans, normr, the trace, k and the exit flag)
+stay on the device in :class:`CGScalars` and advance in ``cg_finalize``:
+one single-block kernel on CUDA, predicated torch ops in its plain version.
+The host launches iterations and reads the ``active`` flag once every
+``check_every`` iterations (16 on CUDA, 1 on the CPU) to stop launching;
+every kernel launched after the exit reads ``active == 0`` and writes
+nothing, and the finalize step zeroes alpha and beta at the exit, so the
+plain-torch axpys of the ``pallas`` backend are no-ops too. The result is
+that of the JAX package's ``while_loop``.
+
+Backends (the JAX package's names, so ``--backend`` means the same):
+
+- ``stencil``: plain torch throughout, the finalize step included. The CPU
+  path and the card's plain baseline.
+- ``pallas``: p = r + beta p in torch, K2 (Ap and the p.Ap partials), then
+  x += alpha p, r -= alpha Ap and r.r in torch (JAX ``solver.py:619-646``).
+- ``pallas_fused``: K3 (p', Ap', p'.Ap') then K4 (x', r', r'.r') (JAX
+  ``solver.py:314-367``).
+- ``auto``: ``pallas_fused`` on a CUDA device, ``stencil`` on the CPU. A
+  fixed choice, not a measured crossover.
+
+On the CPU the kernel backends run the kernels' plain versions. Both
+kernel backends compute the initial Ap with K1.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+from hpccg_tpu_torch.operators import StencilOperator
+from hpccg_tpu_torch.ops.cuda.fused_cg import (
+    IC_K,
+    SC_NORMR,
+    SC_RT_PREV,
+    STEP_INIT,
+    STEP_PAP,
+    STEP_RR,
+    CGScalars,
+    cg_finalize,
+    cg_finalize_plain,
+    num_update_partials,
+    update_x_r,
+)
+from hpccg_tpu_torch.ops.cuda.stencil import (
+    num_partials,
+    spmv_stencil,
+    spmv_stencil_pap,
+    update_p_apply,
+)
+
+BACKENDS = ("auto", "stencil", "pallas", "pallas_fused")
+
+
+@dataclasses.dataclass(frozen=True)
+class CGResult:
+    """Solver output, as device tensors. ``trace[k]`` is the residual norm
+    printed at iteration k (trace[0] = initial residual); entries past
+    ``niters`` are NaN. ``normr`` and ``rtrans`` are the values at the top of
+    the last iteration run, the reference's values at loop exit."""
+
+    x: torch.Tensor
+    niters: torch.Tensor  # int32, iterations run (== ref niters)
+    normr: torch.Tensor
+    rtrans: torch.Tensor
+    trace: torch.Tensor
+
+
+def default_check_every(device) -> int:
+    return 16 if torch.device(device).type == "cuda" else 1
+
+
+def _result(x: torch.Tensor, st: CGScalars) -> CGResult:
+    return CGResult(
+        x=x,
+        niters=st.ic[IC_K] - 1,
+        normr=st.sc[SC_NORMR].clone(),
+        rtrans=st.sc[SC_RT_PREV].clone(),
+        trace=st.trace,
+    )
+
+
+def _stopped(st: CGScalars, it: int, check_every: int) -> bool:
+    return it % check_every == 0 and int(st.active.item()) == 0
+
+
+def cg_solve(
+    matvec: Callable[[torch.Tensor], torch.Tensor],
+    b: torch.Tensor,
+    x0: torch.Tensor,
+    *,
+    max_iter: int,
+    tolerance: float = 0.0,
+    matvec_pap: Optional[Callable] = None,
+    finalize: Callable = cg_finalize,
+    check_every: Optional[int] = None,
+) -> CGResult:
+    """Run CG on flat (n,) vectors.
+
+    ``matvec_pap(p, Ap, active) -> partials``: optional fused variant that
+    writes A p into ``Ap`` and returns the partials of p . Ap (K2); without
+    it, Ap = matvec(p) and p . Ap is a torch dot. ``finalize`` advances the
+    device scalars (``cg_finalize_plain`` keeps the whole solve plain torch).
+    """
+    check_every = check_every or default_check_every(b.device)
+    st = CGScalars.new(b.dtype, max_iter, tolerance, b.device)
+    Ap = matvec(x0)
+    r = b - Ap
+    finalize(torch.dot(r, r).reshape(1), st, STEP_INIT)
+    x = x0.clone()
+    p = x0
+    for it in range(max_iter - 1):
+        if _stopped(st, it, check_every):
+            break
+        p = torch.addcmul(r, st.beta, p)
+        if matvec_pap is not None:
+            part = matvec_pap(p, Ap, st.active)
+        else:
+            Ap = matvec(p)
+            part = torch.dot(p, Ap).reshape(1)
+        finalize(part, st, STEP_PAP)
+        x.addcmul_(st.alpha, p)
+        r.addcmul_(st.alpha, Ap, value=-1)
+        finalize(torch.dot(r, r).reshape(1), st, STEP_RR)
+    return _result(x, st)
+
+
+def cg_solve_fused(
+    op: StencilOperator,
+    b: torch.Tensor,
+    x0: torch.Tensor,
+    *,
+    max_iter: int,
+    tolerance: float = 0.0,
+    check_every: Optional[int] = None,
+) -> CGResult:
+    """CG with two fused passes per iteration: K3 (p-update + SpMV + p.Ap)
+    and K4 (x/r update + r.r), each followed by the finalize step. Same
+    recurrence as cg_solve; no standalone dot or axpy pass remains."""
+    check_every = check_every or default_check_every(b.device)
+    g = op.grid
+    st = CGScalars.new(b.dtype, max_iter, tolerance, b.device)
+    Ap = spmv_stencil(op, g(x0)).reshape(-1)
+    r = b - Ap
+    cg_finalize(torch.dot(r, r).reshape(1), st, STEP_INIT)
+    x = x0.clone()
+    p = x0.clone()
+    p_next = torch.empty_like(p)
+    part3 = torch.empty((num_partials(op, b.device),), dtype=b.dtype, device=b.device)
+    part4 = torch.empty((num_update_partials(b.numel(), b.device),), dtype=b.dtype, device=b.device)
+    for it in range(max_iter - 1):
+        if _stopped(st, it, check_every):
+            break
+        update_p_apply(op, g(r), g(p), st.beta, out_p=g(p_next), out_ap=g(Ap),
+                       partials=part3, active=st.active)
+        p, p_next = p_next, p
+        cg_finalize(part3, st, STEP_PAP)
+        update_x_r(x, r, p, Ap, st.alpha, partials=part4, active=st.active)
+        cg_finalize(part4, st, STEP_RR)
+    return _result(x, st)
+
+
+def resolve_backend(backend: str, device) -> str:
+    """``auto`` -> ``pallas_fused`` on CUDA, ``stencil`` elsewhere (a fixed
+    choice; the JAX package's TPU crossovers are not carried over)."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r} (choose from {BACKENDS})")
+    if backend != "auto":
+        return backend
+    return "pallas_fused" if torch.device(device).type == "cuda" else "stencil"
+
+
+def make_cg(
+    A: StencilOperator,
+    *,
+    max_iter: Optional[int] = None,
+    tolerance: Optional[float] = None,
+    backend: str = "auto",
+    config=None,
+    check_every: Optional[int] = None,
+) -> Callable[[torch.Tensor, torch.Tensor], CGResult]:
+    """Build a solver fn(b, x0) -> CGResult for the stencil operator A.
+
+    Solve parameters come from ``max_iter``/``tolerance`` or a
+    :class:`SolverConfig` passed as ``config`` (explicit keywords win; with
+    neither, max_iter=150 and tolerance=0, the reference's fixed-work
+    protocol). The backend resolves on the device of ``b``. ``check_every``:
+    how many iterations the host launches between reads of the device's
+    exit flag (default 16 on CUDA, 1 on the CPU); the result does not
+    depend on it.
+    """
+    from hpccg_tpu_torch.config import SolverConfig
+
+    if not isinstance(A, StencilOperator):
+        raise TypeError(f"make_cg takes a StencilOperator, got {type(A).__name__} "
+                        "(explicit matrices are not ported yet)")
+    base = config if config is not None else SolverConfig()
+    max_iter = base.max_iter if max_iter is None else max_iter
+    tolerance = base.tolerance if tolerance is None else tolerance
+    resolve_backend(backend, "cpu")  # reject unknown names now
+    g = A.grid
+
+    def solve(b: torch.Tensor, x0: torch.Tensor) -> CGResult:
+        which = resolve_backend(backend, b.device)
+        kw = dict(max_iter=max_iter, tolerance=tolerance, check_every=check_every)
+        if which == "pallas_fused":
+            return cg_solve_fused(A, b, x0, **kw)
+        if which == "pallas":
+            part = torch.empty((num_partials(A, b.device),), dtype=b.dtype, device=b.device)
+
+            def matvec_pap(p, Ap, active):
+                return spmv_stencil_pap(A, g(p), out=g(Ap), partials=part, active=active)[1]
+
+            return cg_solve(lambda v: spmv_stencil(A, g(v)).reshape(-1), b, x0,
+                            matvec_pap=matvec_pap, **kw)
+        return cg_solve(A.matvec, b, x0, finalize=cg_finalize_plain, **kw)
+
+    return solve
