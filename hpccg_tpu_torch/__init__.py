@@ -9,8 +9,12 @@ beside it as the reference:
 - the reference CG recurrence with the scalars kept on the device
   (ref HPCCG.cpp:312-402)
 - hand-written Hopper (sm_90a) CUDA kernels for the Pallas kernels on that
-  path: the stencil SpMV (with a fused p.Ap, or with the p-update folded
-  in), the fused x/r update with r.r, and the scalar finalize step
+  path: the stencil SpMV (with a fused p.Ap, its float64 instance, or with
+  the p-update folded in), the fused x/r update with r.r, the scalar
+  finalize step, and the whole solve in one persistent cooperative kernel
+  (backends megakernel and streamkernel)
+- float64, float32 and bfloat16 state (bf16 vectors with float32
+  reductions and scalars on the whole-solve backends)
 - the YAML/JSON report (ref YAML_Doc, main.cpp)
 
 Layout, as in ``hpccg_tpu``:

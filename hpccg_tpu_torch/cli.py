@@ -9,10 +9,13 @@ report with the JAX package's keys: Time/FLOPS/MFLOPS summaries and the FLOP
 model of main.cpp:224-227.
 
 Total is timed with CUDA events around a warm solve (the host clock on the
-CPU). SPARSEMV is slope-timed on K1; DDOT and WAXPBY on the plain torch ops,
-or, for ``pallas_fused``, WAXPBY on K4 (the fused x/r update with r.r) and
-DDOT left empty because it is fused into K3/K4. Each row is a per-kernel
-micro-benchmark scaled by the iteration count, not a component of Total.
+CPU). SPARSEMV is slope-timed on K1 (empty for bfloat16: K1 has no bf16
+instance yet); DDOT and WAXPBY on the plain torch ops, or, for
+``pallas_fused``, WAXPBY on K4 (the fused x/r update with r.r) and DDOT
+left empty because it is fused into K3/K4. For the whole-solve backends
+(``megakernel``, ``streamkernel``) both are left empty: they are fused into
+the one launch. Each row is a per-kernel micro-benchmark scaled by the
+iteration count, not a component of Total.
 """
 
 from __future__ import annotations
@@ -22,9 +25,10 @@ import sys
 
 import torch
 
-NOT_PORTED_BACKENDS = (
-    "ell", "dia", "pallas_dd", "pallas_v1", "megakernel", "streamkernel", "collective",
-)
+from hpccg_tpu_torch.solver import BACKENDS, WHOLE_SOLVE_BACKENDS
+
+NOT_PORTED_BACKENDS = ("ell", "dia", "collective")
+DTYPES = {"float64": torch.float64, "float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -42,13 +46,13 @@ def build_argparser() -> argparse.ArgumentParser:
         help="ref500 = max_iter 500, tolerance 0 (main.cpp:187-188); ref150 = "
         "max_iter 150 (main_old.cpp:166). Overrides --max-iter/--tolerance",
     )
-    ap.add_argument("--dtype", default="float64", choices=["float64", "float32", "bfloat16"])
+    ap.add_argument("--dtype", default="float64", choices=list(DTYPES))
     ap.add_argument("--mesh", default="1", metavar="N", help="only 1 is ported")
     ap.add_argument(
         "--backend",
         default="auto",
-        choices=["auto", "stencil", "pallas", "pallas_fused", *NOT_PORTED_BACKENDS],
-        help="auto = pallas_fused on CUDA, stencil on the CPU",
+        choices=[*BACKENDS, *NOT_PORTED_BACKENDS],
+        help="auto = pallas_fused on CUDA (streamkernel for bfloat16), stencil on the CPU",
     )
     ap.add_argument("--method", default="cg", choices=["cg", "cg1", "pipecg"])
     ap.add_argument("--refine", type=int, default=0, metavar="N")
@@ -69,8 +73,6 @@ def _not_ported(args) -> str | None:
     """The first requested feature that waits for a later slice, if any."""
     if len(args.dims) != 3 or not all(d.isdigit() for d in args.dims):
         return "file mode"
-    if args.dtype == "bfloat16":
-        return "--dtype bfloat16"
     if args.mesh != "1":
         return f"--mesh {args.mesh}"
     if args.method != "cg":
@@ -83,7 +85,8 @@ def _not_ported(args) -> str | None:
 
 
 def _kernel_bench(prob, backend_used, device):
-    """Seconds per call of (ddot, waxpby, spmv), slope-timed."""
+    """Seconds per call of (ddot, waxpby, spmv), slope-timed; NaN where a
+    row is fused into another kernel or has no kernel for the dtype."""
     from hpccg_tpu_torch.ops.cuda.fused_cg import update_x_r
     from hpccg_tpu_torch.ops.cuda.stencil import spmv_stencil
     from hpccg_tpu_torch.ops.vector import ddot, waxpby
@@ -96,7 +99,10 @@ def _kernel_bench(prob, backend_used, device):
         for i in range(k):
             spmv_stencil(op, bufs[i % 2], out=bufs[(i + 1) % 2])
 
-    t_spmv = time_loop_slope(spmv_loop, device=device)
+    # K1 has no bf16 instance yet
+    t_spmv = float("nan") if prob.b.dtype == torch.bfloat16 else time_loop_slope(spmv_loop, device=device)
+    if backend_used in WHOLE_SOLVE_BACKENDS:
+        return float("nan"), float("nan"), t_spmv
     if backend_used == "pallas_fused":
         x, r, p, ap = (prob.b.clone() for _ in range(4))
         alpha = torch.zeros((1,), dtype=prob.b.dtype, device=device)
@@ -145,12 +151,16 @@ def main(argv=None) -> int:
     from hpccg_tpu_torch.utils.report import Report
     from hpccg_tpu_torch.utils.timing import elapsed, fence
 
-    dtype = {"float64": torch.float64, "float32": torch.float32}[args.dtype]
+    dtype = DTYPES[args.dtype]
     nx, ny, nz = (int(d) for d in args.dims)
     cfg = ProblemConfig(nx, ny, nz, stencil=args.stencil, dtype=dtype)
     prob = generate_problem(cfg, device)
-    backend_used = resolve_backend(args.backend, device)
-    solve = make_cg(prob.A, max_iter=args.max_iter, tolerance=args.tolerance, backend=args.backend)
+    backend_used = resolve_backend(args.backend, device, dtype)
+    try:
+        solve = make_cg(prob.A, max_iter=args.max_iter, tolerance=args.tolerance, backend=args.backend)
+    except ValueError as err:  # a dtype the backend's kernels do not take
+        print(f"error: {err}", file=sys.stderr)
+        return 2
 
     if args.validate:
         from hpccg_tpu_torch.utils.checks import validate_problem
@@ -167,7 +177,7 @@ def main(argv=None) -> int:
 
     niters = int(res.niters)
     normr = float(res.normr)
-    trace = res.trace.cpu().numpy()
+    trace = res.trace.float().cpu().numpy()  # a bf16 trace (stencil) has no numpy dtype
 
     check_residual = None
     if args.check:
@@ -233,12 +243,13 @@ def main(argv=None) -> int:
     ts.add("DDOT    ", t_ddot)
     ts.add("WAXPBY  ", t_waxpby)
     ts.add("SPARSEMV", t_spmv)
-    fused_note = (
-        "; WAXPBY times K4 (x/r update fused with r.r) once per iteration and "
-        "DDOT is fused into K3/K4"
-        if backend_used == "pallas_fused"
-        else ""
-    )
+    fused_note = ""
+    if backend_used == "pallas_fused":
+        fused_note = "; WAXPBY times K4 (x/r update fused with r.r) once per iteration and DDOT is fused into K3/K4"
+    elif backend_used in WHOLE_SOLVE_BACKENDS:
+        fused_note = "; DDOT and WAXPBY are fused into the whole-solve kernel (one launch per solve)"
+    if dtype == torch.bfloat16:
+        fused_note += "; SPARSEMV is empty: K1 has no bfloat16 instance yet"
     ts.add(
         f"(DDOT/WAXPBY/SPARSEMV are slope-timed micro-benchmarks; SPARSEMV is the "
         f"K1 stencil kernel; Total timed backend={backend_used}{fused_note})",

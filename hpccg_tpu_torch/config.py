@@ -31,8 +31,17 @@ class Stencil(enum.Enum):
 DIAG_VALUE = 27.0
 OFFDIAG_VALUE = -1.0
 
-# dtypes the slice supports (bf16 state is a later slice)
-SUPPORTED_DTYPES = (torch.float32, torch.float64)
+# dtypes of the solve state. bf16 is storage only: reductions, the CG
+# recurrence and the trace run in scalar_dtype (f32), as in the JAX package's
+# whole-solve kernels (megakernel.py:133-138, :339-341)
+SUPPORTED_DTYPES = (torch.float32, torch.float64, torch.bfloat16)
+
+
+def scalar_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype of reductions and CG scalars for vectors of ``dtype``:
+    float32 for 16-bit types, the dtype itself otherwise
+    (``jnp.promote_types(dtype, jnp.float32)``, megakernel.py:341)."""
+    return torch.float32 if dtype.itemsize == 2 else dtype
 
 
 @dataclasses.dataclass(frozen=True)

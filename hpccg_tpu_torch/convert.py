@@ -4,6 +4,12 @@ The system has no weights: its state is the problem (b, x0, xexact on the
 grid) and the CG result. The JAX package's arrays, handed over with
 ``np.asarray``, become the port's tensors bit for bit, so both packages can
 solve the very same system; the ``*_to_numpy`` functions go back.
+
+bfloat16: numpy has no bf16 of its own; JAX hands over ``ml_dtypes``'
+bfloat16. Such an array is widened exactly to float32 and narrowed again
+by torch (``.to(torch.bfloat16)``), which gives back the same bits. Going
+back, a bf16 tensor becomes an ``ml_dtypes`` bfloat16 array the same way
+(``ml_dtypes`` is imported only then).
 """
 
 from __future__ import annotations
@@ -19,14 +25,27 @@ from hpccg_tpu_torch.solver import CGResult
 
 def _tensor(a, device, dtype=None) -> torch.Tensor:
     a = np.ascontiguousarray(np.asarray(a))
-    return torch.from_numpy(a.copy()).to(device=device, dtype=dtype)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a.copy())
+    return t.to(device=device, dtype=dtype)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.float().numpy().astype(ml_dtypes.bfloat16)
+    return t.numpy()
 
 
 def problem_from_numpy(nx, ny, nz, stencil, b, x0, xexact, *, device) -> Problem:
     """A Problem on ``device`` from the numpy vectors of a generated problem."""
     b = _tensor(b, device)
-    if b.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"b must be float32 or float64, got {b.dtype}")
+    if b.dtype not in (torch.float32, torch.float64, torch.bfloat16):
+        raise TypeError(f"b must be float32, float64 or bfloat16, got {b.dtype}")
     op = StencilOperator(nx=nx, ny=ny, nz=nz, stencil=Stencil.from_any(stencil), dtype=b.dtype)
     if tuple(b.shape) != (op.local_nrow,):
         raise ValueError(f"b has shape {tuple(b.shape)}, expected ({op.local_nrow},)")
@@ -48,29 +67,24 @@ def problem_to_numpy(prob: Problem) -> dict:
         "ny": A.ny,
         "nz": A.nz,
         "stencil": A.stencil.value,
-        "b": prob.b.cpu().numpy(),
-        "x0": prob.x0.cpu().numpy(),
-        "xexact": prob.xexact.cpu().numpy(),
+        "b": _numpy(prob.b),
+        "x0": _numpy(prob.x0),
+        "xexact": _numpy(prob.xexact),
     }
 
 
 def result_from_numpy(x, niters, normr, rtrans, trace, *, device) -> CGResult:
-    """A CGResult on ``device`` from numpy arrays (e.g. a JAX CGResult's)."""
-    x = _tensor(x, device)
+    """A CGResult on ``device`` from numpy arrays (e.g. a JAX CGResult's).
+    Each array keeps its own dtype: a bf16 solve has bf16 ``x`` and float32
+    ``normr``, ``rtrans`` and ``trace``."""
     return CGResult(
-        x=x,
+        x=_tensor(x, device),
         niters=_tensor(niters, device, torch.int32),
-        normr=_tensor(normr, device, x.dtype),
-        rtrans=_tensor(rtrans, device, x.dtype),
-        trace=_tensor(trace, device, x.dtype),
+        normr=_tensor(normr, device),
+        rtrans=_tensor(rtrans, device),
+        trace=_tensor(trace, device),
     )
 
 
 def result_to_numpy(res: CGResult) -> dict:
-    return {
-        "x": res.x.cpu().numpy(),
-        "niters": res.niters.cpu().numpy(),
-        "normr": res.normr.cpu().numpy(),
-        "rtrans": res.rtrans.cpu().numpy(),
-        "trace": res.trace.cpu().numpy(),
-    }
+    return {name: _numpy(getattr(res, name)) for name in ("x", "niters", "normr", "rtrans", "trace")}

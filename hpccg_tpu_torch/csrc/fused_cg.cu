@@ -21,7 +21,7 @@
 // grid so the partials stay few, and the partial sums deterministic (fixed
 // tree in each block, fixed order in finalize; no float atomics).
 //
-// The scalar state lives in two small device arrays:
+// The scalar state lives in two small device arrays (cg_scalars.cuh):
 //   sc[T]:   rtrans (current), rtrans (previous), alpha, beta, normr, tol
 //   ic[int]: k, active, max_iter
 // Exit semantics follow the reference loop `for k=1; k<max_iter &&
@@ -29,6 +29,7 @@
 // body, not the newest r.r (solver.py:94-137). Iteration k runs iff
 // k < max_iter and normr_{k-1} > tol.
 
+#include "cg_scalars.cuh"
 #include "reduce.cuh"
 
 namespace {
@@ -36,8 +37,7 @@ namespace {
 constexpr int NT = 256;
 constexpr long long K4_MAX_BLOCKS = 1056;  // 8 blocks on each of 132 SMs
 
-enum { SC_RT_CUR = 0, SC_RT_PREV = 1, SC_ALPHA = 2, SC_BETA = 3, SC_NORMR = 4, SC_TOL = 5 };
-enum { IC_K = 0, IC_ACTIVE = 1, IC_MAX_ITER = 2 };
+using namespace hpccg;
 enum { STEP_INIT = 0, STEP_PAP = 1, STEP_RR = 2 };
 
 template <typename T>

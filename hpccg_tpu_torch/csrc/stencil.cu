@@ -7,10 +7,7 @@
 //                                                    Ap' = A p', p' . Ap')
 // and computes the product of stencil_kernel.py:_kernel (K8) as well.
 //
-// A is the implicit generated-problem operator: A u = 28 u - S(u), where S
-// is the boundary-clipped 27-point (or 7-point) neighbour sum including the
-// point itself. Vectors are the flat row-major (nz, ny, nx) layout of the
-// JAX package (currow = iz*nx*ny + iy*nx + ix), with no padding.
+// A and the vector layout: stencil_tile.cuh.
 //
 // What bounds it on the card: memory bandwidth. Per point K1 does ~30 flops
 // on one read of u and one write of y (8 B in f32), far below the H100's
@@ -19,12 +16,9 @@
 //
 // What the design does about it:
 //   - A block owns a 32x8 xy tile and marches in z over a chunk of ZC
-//     planes. Each plane is loaded once into shared memory with a one-cell
-//     apron, and its separable xy-sum sum3_y(sum3_x(u)) (27-point) or its
-//     in-plane 5-point sum (7-point) stays in registers for the next two
-//     planes, as stencil_v2.py:168-175 does with slab planes: each plane of
-//     u is read from device memory about once (plus the apron and the two
-//     halo planes per chunk, which L2 serves).
+//     planes (hpccg::march_tile, stencil_tile.cuh, shared with the
+//     whole-solve kernel): each plane of u is read from device memory about
+//     once.
 //   - With FUSE_P the kernel forms p' = r + beta p as it loads, so p' never
 //     makes an extra round trip; beta is read through a device pointer.
 //   - With PAP each block writes its partial of u . y to partials[block]; a
@@ -41,13 +35,14 @@
 // Simple first: no TMA, clusters or warp specialisation yet.
 
 #include "reduce.cuh"
+#include "stencil_tile.cuh"
 
 namespace {
 
-constexpr int TX = 32;  // tile width in x (one warp)
-constexpr int TY = 8;   // tile height in y
+using hpccg::TILE_NT;
+using hpccg::TILE_X;
+using hpccg::TILE_Y;
 constexpr int ZC = 16;  // z-planes per block
-constexpr int NT = TX * TY;
 
 // One point of the (possibly fused) input plane zz, zero outside the grid.
 // Planes -1 and nz come from the halo pointers (zero when null).
@@ -81,18 +76,18 @@ __device__ __forceinline__ T load_point(const T* __restrict__ u, const T* __rest
 }
 
 template <typename T, int STENCIL, bool FUSE_P, bool PAP>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(TILE_NT)
     stencil_kernel(const T* __restrict__ u, const T* __restrict__ v, const T* beta_ptr,
                    const T* hb_u, const T* ha_u, const T* hb_v, const T* ha_v,
                    T* __restrict__ out_p, T* __restrict__ out_y, T* __restrict__ partials,
                    const int* active, int nx, int ny, int nz) {
   if (active != nullptr && *active == 0) return;
-  __shared__ T tile[TY + 2][TX + 2];
-  __shared__ T red[PAP ? NT : 1];
+  __shared__ T tile[TILE_Y + 2][TILE_X + 2];
+  __shared__ T red[PAP ? TILE_NT : 1];
 
-  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
-  const int bx0 = blockIdx.x * TX, by0 = blockIdx.y * TY;
-  const int ix = bx0 + tx, iy = by0 + ty;
+  const int tid = threadIdx.y * TILE_X + threadIdx.x;
+  const int bx0 = blockIdx.x * TILE_X, by0 = blockIdx.y * TILE_Y;
+  const int ix = bx0 + threadIdx.x, iy = by0 + threadIdx.y;
   const bool inside = ix < nx && iy < ny;
   const int z0 = blockIdx.z * ZC;
   const int z1 = min(z0 + ZC, nz);
@@ -100,44 +95,21 @@ __global__ void __launch_bounds__(NT)
   const int64_t inplane = (int64_t)iy * nx + ix;
   const T beta = FUSE_P ? *beta_ptr : T(0);
 
-  // c_*: the point itself on planes z-1, z; s_*: its in-plane sum there
-  T c_prev = T(0), c_cur = T(0), s_prev = T(0), s_cur = T(0), acc = T(0);
-  for (int zz = z0 - 1; zz <= z1; ++zz) {
-    __syncthreads();  // the previous plane's reads are done
-    for (int i = tid; i < (TY + 2) * (TX + 2); i += NT) {
-      const int ly = i / (TX + 2), lx = i % (TX + 2);
-      tile[ly][lx] = load_point<T, FUSE_P>(u, v, beta, hb_u, ha_u, hb_v, ha_v, zz,
-                                           by0 + ly - 1, bx0 + lx - 1, nx, ny, nz);
-    }
-    __syncthreads();
-    const T c = tile[ty + 1][tx + 1];
-    T s;
-    if (STENCIL == 27) {
-      // sum3_y(sum3_x(u)), associated as the JAX package's _axis_sum3
-      const T xm = (tile[ty][tx] + tile[ty][tx + 1]) + tile[ty][tx + 2];
-      const T x0 = (tile[ty + 1][tx] + c) + tile[ty + 1][tx + 2];
-      const T xp = (tile[ty + 2][tx] + tile[ty + 2][tx + 1]) + tile[ty + 2][tx + 2];
-      s = (xm + x0) + xp;
-    } else {
-      s = ((tile[ty + 1][tx] + c) + tile[ty + 1][tx + 2]) + (tile[ty][tx + 1] + tile[ty + 2][tx + 1]);
-    }
-    if (zz > z0) {  // plane zz-1 now has both z-neighbours
-      const T nsum = (STENCIL == 27) ? (s_prev + s_cur) + s : (c_prev + s_cur) + c;
-      const T y = T(28) * c_cur - nsum;
-      if (inside) {
-        const int64_t o = (int64_t)(zz - 1) * plane + inplane;
+  T acc = T(0);
+  hpccg::march_tile<T, STENCIL>(
+      tile, bx0, by0, z0, z1,
+      [&](int zz, int gy, int gx) {
+        return load_point<T, FUSE_P>(u, v, beta, hb_u, ha_u, hb_v, ha_v, zz, gy, gx, nx, ny, nz);
+      },
+      [&](int z, T c, T y) {
+        if (!inside) return;
+        const int64_t o = (int64_t)z * plane + inplane;
         out_y[o] = y;
-        if (FUSE_P) out_p[o] = c_cur;
-        if (PAP) acc += c_cur * y;
-      }
-    }
-    c_prev = c_cur;
-    c_cur = c;
-    s_prev = s_cur;
-    s_cur = s;
-  }
+        if (FUSE_P) out_p[o] = c;
+        if (PAP) acc += c * y;
+      });
   if (PAP) {
-    const T total = hpccg::block_sum<T, NT>(acc, red, tid);
+    const T total = hpccg::block_sum<T, TILE_NT>(acc, red, tid);
     if (tid == 0) {
       partials[((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] = total;
     }
@@ -145,7 +117,7 @@ __global__ void __launch_bounds__(NT)
 }
 
 dim3 stencil_grid(int nx, int ny, int nz) {
-  return dim3((nx + TX - 1) / TX, (ny + TY - 1) / TY, (nz + ZC - 1) / ZC);
+  return dim3((nx + TILE_X - 1) / TILE_X, (ny + TILE_Y - 1) / TILE_Y, (nz + ZC - 1) / ZC);
 }
 
 template <typename T, int STENCIL>
@@ -154,7 +126,7 @@ void launch_variant(const T* u, const T* v, const T* beta, const T* hb_u, const 
                     const int* active, int nx, int ny, int nz, int fuse_p, int pap,
                     cudaStream_t stream) {
   const dim3 grid = stencil_grid(nx, ny, nz);
-  const dim3 block(TX, TY);
+  const dim3 block(TILE_X, TILE_Y);
   if (fuse_p) {
     stencil_kernel<T, STENCIL, true, true><<<grid, block, 0, stream>>>(
         u, v, beta, hb_u, ha_u, hb_v, ha_v, out_p, out_y, partials, active, nx, ny, nz);

@@ -4,16 +4,18 @@ from __future__ import annotations
 
 import torch
 
-from hpccg_tpu_torch.config import SUPPORTED_DTYPES
+# dtypes of K1-K4 and the finalize step; the whole-solve kernel also takes bf16
+KERNEL_DTYPES = (torch.float32, torch.float64)
 
 
-def check_tensors(ref: torch.Tensor, **tensors) -> None:
-    """Raise unless ``ref`` is float32/float64 and every named
+def check_tensors(ref: torch.Tensor, dtypes=KERNEL_DTYPES, **tensors) -> None:
+    """Raise unless ``ref``'s dtype is one of ``dtypes`` and every named
     ``(tensor, shape, dtype)`` (None: absent / any shape / ref's dtype) is on
     ref's device, of that dtype and shape, and contiguous: what a kernel
     takes."""
-    if ref.dtype not in SUPPORTED_DTYPES:
-        raise TypeError(f"the kernels take float32/float64, got {ref.dtype}")
+    if ref.dtype not in dtypes:
+        names = "/".join(str(d).replace("torch.", "") for d in dtypes)
+        raise TypeError(f"the kernel takes {names}, got {ref.dtype}")
     for name, (t, shape, dtype) in tensors.items():
         if t is None:
             continue

@@ -3,7 +3,11 @@
 ``nvcc`` compiles every ``hpccg_tpu_torch/csrc/*.cu`` for ``sm_90a`` into one
 shared library with a plain C interface, ``build/hpccg_tpu_torch/
 libhpccg_tpu_torch_kernels.so`` at the root of the checkout, which is loaded
-with ctypes. The build happens at first use on a CUDA device, never at
+with ctypes. The sources compile in parallel, one ``nvcc -c`` each, and are
+linked in one more step (on an H100 host, 8.5-10.0 s against 14.6-18.4 s
+for one ``nvcc -shared`` call over all sources). The whole-solve kernel's
+grid sync (cooperative_groups) needs no relocatable device code
+(``-rdc``). The build happens at first use on a CUDA device, never at
 import and never on the CPU; it is redone only when the hash of the sources
 and flags changes. The compiler's output (``-Xptxas -v``: registers, shared
 memory, spills per kernel) is kept in ``nvcc.log`` beside the library.
@@ -26,10 +30,8 @@ import torch
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "hpccg_tpu_torch"
 LIB_NAME = "libhpccg_tpu_torch_kernels.so"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,6 +48,11 @@ _SIGNATURES = {
     "hpccg_update_x_r_f64": [_P] * 7 + [_LL, _P],
     "hpccg_finalize_f32": [_P, _I, _P, _P, _P, _I, _P],
     "hpccg_finalize_f64": [_P, _I, _P, _P, _P, _I, _P],
+    "hpccg_wholesolve_num_blocks": [_I] * 6,
+    "hpccg_wholesolve_work_items": [_I] * 3,
+    "hpccg_wholesolve_f32": [_P] * 8 + [_I] + [_P] * 3 + [_I] * 5 + [_P],
+    "hpccg_wholesolve_f64": [_P] * 8 + [_I] + [_P] * 3 + [_I] * 5 + [_P],
+    "hpccg_wholesolve_bf16": [_P] * 8 + [_I] + [_P] * 3 + [_I] * 5 + [_P],
 }
 
 
@@ -74,26 +81,37 @@ def nvcc_path() -> str:
 
 def build() -> float:
     """Compile the kernel library if its sources changed; returns the
-    seconds spent compiling (0.0 when the library was up to date)."""
+    seconds spent compiling and linking (0.0 when the library was up to
+    date)."""
     lib = BUILD_DIR / LIB_NAME
     stamp = BUILD_DIR / (LIB_NAME + ".sha256")
     digest = source_hash()
     if lib.exists() and stamp.exists() and stamp.read_text() == digest:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(prefix=LIB_NAME, dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    (BUILD_DIR / "nvcc.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, lib)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [Path(tmpdir) / (src.stem + ".o") for src in sources()]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(sources(), objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
+        outs = [p.communicate()[0] for p in procs]
+        tmp = Path(tmpdir) / LIB_NAME
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        failed = [(c, o) for c, o, p in zip(cmds, outs, procs) if p.returncode != 0]
+        log = "".join(" ".join(c) + "\n" + o for c, o in zip(cmds, outs))
+        if not failed:
+            proc = subprocess.run(link, capture_output=True, text=True)
+            log += " ".join(link) + "\n" + proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                failed = [(link, proc.stdout + proc.stderr)]
+        (BUILD_DIR / "nvcc.log").write_text(log)
+        if failed:
+            cmd, out = failed[0]
+            raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{out[-4000:]}")
+        os.replace(tmp, lib)
     stamp.write_text(digest)
-    return seconds
+    return time.perf_counter() - t0
 
 
 @functools.cache

@@ -31,9 +31,9 @@ STEP_INIT, STEP_PAP, STEP_RR = range(3)
 class CGScalars:
     """The CG recurrence's device state (updated in place by cg_finalize).
 
-    ``sc`` (solve dtype): rtrans, the previous rtrans, alpha, beta, normr,
-    tolerance. ``ic`` (int32): k, active, max_iter. ``trace[k]`` is the
-    residual norm at the top of body k (trace[0]: the initial residual);
+    ``sc`` (the scalar dtype): rtrans, the previous rtrans, alpha, beta,
+    normr, tolerance. ``ic`` (int32): k, active, max_iter. ``trace[k]`` is
+    the residual norm at the top of body k (trace[0]: the initial residual);
     entries never reached stay NaN.
     """
 
@@ -43,6 +43,11 @@ class CGScalars:
 
     @classmethod
     def new(cls, dtype, max_iter: int, tolerance: float, device) -> "CGScalars":
+        """``dtype`` is the scalars' own dtype, which the caller picks apart
+        from the vectors': the vectors' dtype for the per-iteration backends
+        (all-bf16 on ``stencil``, as the JAX package's cg_solve), and
+        ``config.scalar_dtype`` of it (f32 for bf16 vectors) for the
+        whole-solve kernels."""
         sc = torch.zeros((8,), dtype=dtype, device=device)
         sc[SC_TOL] = tolerance
         ic = torch.zeros((4,), dtype=torch.int32, device=device)

@@ -1,11 +1,14 @@
-"""Stencil SpMV kernels K1, K2, K3 (``csrc/stencil.cu``): wrappers, plain
-versions and launch counters.
+"""Stencil SpMV kernels K1, K2, K3 and K7 (``csrc/stencil.cu``): wrappers,
+plain versions and launch counters.
 
 - K1 ``spmv_stencil``: y = A u (``stencil_v2.py:_kernel``; also the product
   of ``stencil_kernel.py:_kernel``, K8);
 - K2 ``spmv_stencil_pap``: (y, partials of u . y) (``stencil_v2.py:_kernel_pap``);
 - K3 ``update_p_apply``: (p' = r + beta p, Ap' = A p', partials of p'. Ap')
-  (``fused_cg.py:_k1``).
+  (``fused_cg.py:_k1``);
+- K7 ``spmv_stencil_pap_dd``: K2's float64 instance, backend ``pallas_dd``
+  (``stencil_v2.py:_kernel_dd`` / ``_kernel_dd_pap``, which carry f64 as
+  (hi, lo) float32 pairs because the TPU has no f64; Hopper has native f64).
 
 Vectors are contiguous (nz, ny, nx) tensors, the flat row-major layout of
 the JAX package viewed as a grid. Halos are external z-planes for a shard,
@@ -129,8 +132,9 @@ def spmv_stencil_pap_plain(op, u, halo=None, *, out=None, partials=None, active=
     return out, partials
 
 
-def spmv_stencil_pap(op: StencilOperator, u, halo=None, *, out=None, partials=None, active=None):
-    """K2: (y = A u, per-block partials of u . y)."""
+def _k2(counter, op, u, halo, out, partials, active):
+    """K2's checks and launch, shared with K7; a launch is counted in
+    ``counter.launches``."""
     grid = (op.nz, op.ny, op.nx)
     check_tensors(u, u=(u, grid, None), halo=(halo, (2, op.ny, op.nx), None),
                   out=(out, grid, None), active=(active, *_ACTIVE))
@@ -141,11 +145,38 @@ def spmv_stencil_pap(op: StencilOperator, u, halo=None, *, out=None, partials=No
     if out is None:
         out = torch.empty_like(u)
     _launch(op, u, None, None, halo, None, None, out, partials, active, False, True)
-    spmv_stencil_pap.launches += 1
+    counter.launches += 1
     return out, partials
 
 
+def spmv_stencil_pap(op: StencilOperator, u, halo=None, *, out=None, partials=None, active=None):
+    """K2: (y = A u, per-block partials of u . y)."""
+    return _k2(spmv_stencil_pap, op, u, halo, out, partials, active)
+
+
 spmv_stencil_pap.launches = 0
+
+
+# --------------------------------------------------------------------- K7
+
+
+def require_f64(dtype) -> None:
+    """The dtype check of K7 and of backend ``pallas_dd``: float64 only."""
+    if dtype != torch.float64:
+        raise ValueError(f"pallas_dd is the float64 path (K7, the f64 instance of the stencil kernel); "
+                         f"got {dtype}: use 'pallas' for float32")
+
+
+def spmv_stencil_pap_dd(op: StencilOperator, u, halo=None, *, out=None, partials=None, active=None):
+    """K7: (y = A u, per-block partials of u . y) in float64, the port of the
+    TPU's double-float stencil (``spmv_padded_v2_dd_pap``); raises
+    ValueError naming ``pallas_dd`` for any other dtype. Its plain version
+    is K2's, ``spmv_stencil_pap_plain``."""
+    require_f64(u.dtype)
+    return _k2(spmv_stencil_pap_dd, op, u, halo, out, partials, active)
+
+
+spmv_stencil_pap_dd.launches = 0
 
 
 # --------------------------------------------------------------------- K3

@@ -28,11 +28,28 @@ Backends (the JAX package's names, so ``--backend`` means the same):
   x += alpha p, r -= alpha Ap and r.r in torch (JAX ``solver.py:619-646``).
 - ``pallas_fused``: K3 (p', Ap', p'.Ap') then K4 (x', r', r'.r') (JAX
   ``solver.py:314-367``).
-- ``auto``: ``pallas_fused`` on a CUDA device, ``stencil`` on the CPU. A
-  fixed choice, not a measured crossover.
+- ``pallas_dd``: the ``pallas`` path in float64 only, with K7 (K2's native
+  f64 instance) in place of K2: the port of the TPU's double-float stencil
+  (JAX ``solver.py:648-676``).
+- ``pallas_v1``: the ``pallas`` path without the fused p.Ap: K1 and a torch
+  dot (JAX ``solver.py:696-722``, whose K8 computes K1's product).
+- ``megakernel`` / ``streamkernel``: the whole solve in one launch of K5 /
+  K6 (``ops/cuda/megakernel.py``, ``ops/cuda/streamkernel.py``).
+- ``auto``: on a CUDA device ``pallas_fused`` for float32 and float64 and
+  ``streamkernel`` for bfloat16; ``stencil`` on the CPU. A fixed choice, not
+  a measured crossover: on the H100 ``megakernel`` has since measured faster
+  than ``streamkernel`` in bfloat16 (ROADMAP 7b). On the CPU ``auto`` in
+  bfloat16 is the all-bf16 ``stencil`` recurrence, on CUDA the whole solve
+  with float32 scalars, so the two give results of different precision.
 
-On the CPU the kernel backends run the kernels' plain versions. Both
-kernel backends compute the initial Ap with K1.
+bfloat16 state: ``stencil`` runs the JAX package's all-bf16 ``cg_solve``
+(vectors, scalars and trace in bf16; JAX ``solver.py:83-92``);
+``megakernel`` and ``streamkernel`` keep the reductions, the scalars and the
+trace in float32 (``config.scalar_dtype``). K1-K4 have no bf16 instance yet,
+so the other kernel backends refuse bf16.
+
+On the CPU the kernel backends run the kernels' plain versions. The
+per-iteration kernel backends compute the initial Ap with K1.
 """
 
 from __future__ import annotations
@@ -56,14 +73,22 @@ from hpccg_tpu_torch.ops.cuda.fused_cg import (
     num_update_partials,
     update_x_r,
 )
+from hpccg_tpu_torch.ops.cuda.megakernel import cg_solve_mega
 from hpccg_tpu_torch.ops.cuda.stencil import (
     num_partials,
+    require_f64,
     spmv_stencil,
     spmv_stencil_pap,
+    spmv_stencil_pap_dd,
     update_p_apply,
 )
+from hpccg_tpu_torch.ops.cuda.streamkernel import cg_solve_stream
 
-BACKENDS = ("auto", "stencil", "pallas", "pallas_fused")
+BACKENDS = ("auto", "stencil", "pallas", "pallas_fused", "pallas_dd", "pallas_v1", "megakernel",
+            "streamkernel")
+WHOLE_SOLVE_BACKENDS = ("megakernel", "streamkernel")  # one launch per solve
+# the backends that take bfloat16 state
+BF16_BACKENDS = ("stencil", *WHOLE_SOLVE_BACKENDS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,14 +199,26 @@ def cg_solve_fused(
     return _result(x, st)
 
 
-def resolve_backend(backend: str, device) -> str:
-    """``auto`` -> ``pallas_fused`` on CUDA, ``stencil`` elsewhere (a fixed
-    choice; the JAX package's TPU crossovers are not carried over)."""
+def resolve_backend(backend: str, device, dtype=None) -> str:
+    """``auto`` -> on CUDA ``pallas_fused`` (``streamkernel`` for bfloat16),
+    ``stencil`` elsewhere (a fixed choice; the JAX package's TPU crossovers
+    are not carried over and no H100 crossover is measured yet)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r} (choose from {BACKENDS})")
     if backend != "auto":
         return backend
-    return "pallas_fused" if torch.device(device).type == "cuda" else "stencil"
+    if torch.device(device).type != "cuda":
+        return "stencil"
+    return "streamkernel" if dtype == torch.bfloat16 else "pallas_fused"
+
+
+def _check_dtype(backend: str, dtype) -> None:
+    """Refuse a dtype the backend's kernels do not take."""
+    if backend == "pallas_dd":
+        require_f64(dtype)
+    if dtype == torch.bfloat16 and backend not in BF16_BACKENDS + ("auto",):
+        raise ValueError(f"backend {backend!r} has no bfloat16 kernels yet; bfloat16 state runs on "
+                         f"{', '.join(BF16_BACKENDS)}")
 
 
 def make_cg(
@@ -198,10 +235,11 @@ def make_cg(
     Solve parameters come from ``max_iter``/``tolerance`` or a
     :class:`SolverConfig` passed as ``config`` (explicit keywords win; with
     neither, max_iter=150 and tolerance=0, the reference's fixed-work
-    protocol). The backend resolves on the device of ``b``. ``check_every``:
-    how many iterations the host launches between reads of the device's
-    exit flag (default 16 on CUDA, 1 on the CPU); the result does not
-    depend on it.
+    protocol). The backend resolves on the device and dtype of ``b``;
+    a dtype its kernels do not take raises ValueError. ``check_every``: how
+    many iterations the per-iteration backends launch between reads of the
+    device's exit flag (default 16 on CUDA, 1 on the CPU); the result does
+    not depend on it. The whole-solve backends read back once per solve.
     """
     from hpccg_tpu_torch.config import SolverConfig
 
@@ -212,18 +250,26 @@ def make_cg(
     max_iter = base.max_iter if max_iter is None else max_iter
     tolerance = base.tolerance if tolerance is None else tolerance
     resolve_backend(backend, "cpu")  # reject unknown names now
+    _check_dtype(backend, A.dtype)
     g = A.grid
 
     def solve(b: torch.Tensor, x0: torch.Tensor) -> CGResult:
-        which = resolve_backend(backend, b.device)
+        which = resolve_backend(backend, b.device, b.dtype)
+        _check_dtype(which, b.dtype)
+        if which in WHOLE_SOLVE_BACKENDS:
+            whole = cg_solve_mega if which == "megakernel" else cg_solve_stream
+            return whole(A, b, x0, max_iter=max_iter, tolerance=tolerance)
         kw = dict(max_iter=max_iter, tolerance=tolerance, check_every=check_every)
         if which == "pallas_fused":
             return cg_solve_fused(A, b, x0, **kw)
-        if which == "pallas":
+        if which == "pallas_v1":
+            return cg_solve(lambda v: spmv_stencil(A, g(v)).reshape(-1), b, x0, **kw)
+        if which in ("pallas", "pallas_dd"):
             part = torch.empty((num_partials(A, b.device),), dtype=b.dtype, device=b.device)
+            k2 = spmv_stencil_pap_dd if which == "pallas_dd" else spmv_stencil_pap
 
             def matvec_pap(p, Ap, active):
-                return spmv_stencil_pap(A, g(p), out=g(Ap), partials=part, active=active)[1]
+                return k2(A, g(p), out=g(Ap), partials=part, active=active)[1]
 
             return cg_solve(lambda v: spmv_stencil(A, g(v)).reshape(-1), b, x0,
                             matvec_pap=matvec_pap, **kw)

@@ -69,12 +69,38 @@ def test_backends_and_kernel_bench(backend):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--dtype", "bfloat16"], ["--mesh", "2"], ["--method", "cg1"], ["--method", "pipecg"],
-    ["--refine", "2"], ["--backend", "megakernel"], ["--backend", "pallas_dd"],
+    ["--backend", "ell"], ["--mesh", "2"], ["--method", "cg1"], ["--method", "pipecg"],
+    ["--refine", "2"], ["--backend", "dia"], ["--backend", "collective"],
 ])
 def test_not_yet_ported_flags_exit_2(extra, capsys):
     assert main(["4", "4", "4", "--device", "cpu"] + extra) == 2
     assert "not yet ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("extra", [["--backend", "megakernel"], ["--backend", "streamkernel"],
+                                   ["--dtype", "bfloat16"]])
+def test_whole_solve_backends_and_bf16(extra):
+    """The whole-solve backends report DDOT and WAXPBY as fused into the
+    solve (empty, with a note); bf16 leaves SPARSEMV empty (K1 has no bf16
+    instance yet)."""
+    rc, out = _run(main, ["6", "5", "4", "--device", "cpu", "--quiet", "--json", "--max-iter", "20",
+                          "--validate"] + extra)
+    assert rc == 0
+    rep = _report(out)
+    assert rep["Number of iterations"] == 19
+    ts = rep["Time Summary"]
+    note = next(k for k in ts if k.startswith("("))
+    whole = "--backend" in extra
+    assert (ts["DDOT    "] != ts["DDOT    "]) == whole and (ts["WAXPBY  "] != ts["WAXPBY  "]) == whole
+    assert ("fused into the whole-solve kernel" in note) == whole
+    bf16 = "bfloat16" in extra
+    assert (ts["SPARSEMV"] != ts["SPARSEMV"]) == bf16 and ("no bfloat16 instance" in note) == bf16
+    assert rep["Dimensions"]["dtype"] == ("bfloat16" if bf16 else "float64")
+
+
+def test_pallas_dd_refuses_float32(capsys):
+    assert main(["4", "4", "4", "--device", "cpu", "--dtype", "float32", "--backend", "pallas_dd"]) == 2
+    assert "pallas_dd" in capsys.readouterr().err
 
 
 def test_file_mode_exits_2(capsys):

@@ -7,7 +7,15 @@ runs it without the suite's conftest:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
 Tolerances as in test_torch_kernels.py (max |kernel - plain| over max |plain|
-for vectors, relative for dots): f64 1e-13 / 1e-12, f32 1e-5 / 1e-4.
+for vectors, relative for dots): f64 1e-13 / 1e-12, f32 1e-5 / 1e-4. The
+whole-solve kernels K5/K6 against their plain versions, at 33x17x9 and at
+200x170x150 (more work items than blocks, so blocks take several in turns):
+niters equal, the trace within 1e-10 / 1e-4 / 1.5e-2 (f64 / f32 / bf16)
+while it stays above 1e-11 / 1e-5 / 1e-4 of trace[0] (the solve stops
+there, on a tolerance between two of the plain trace's entries), x within
+1e-12 / 1e-5 of max|x| (bf16: at most 4 ulps apart, in at most 1e-3 of the
+elements), one launch per solve, and two solves bit-identical. The bf16
+limits are about twice the largest readings on an H100 (chip_smoke.py).
 """
 
 import pytest
@@ -18,7 +26,9 @@ from hpccg_tpu_torch import ProblemConfig, generate_problem, make_cg  # noqa: E4
 from hpccg_tpu_torch.config import Stencil  # noqa: E402
 from hpccg_tpu_torch.operators import StencilOperator  # noqa: E402
 from hpccg_tpu_torch.ops.cuda import fused_cg as fc  # noqa: E402
+from hpccg_tpu_torch.ops.cuda import megakernel as mk  # noqa: E402
 from hpccg_tpu_torch.ops.cuda import stencil as st  # noqa: E402
+from hpccg_tpu_torch.ops.cuda import streamkernel as sk  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -107,6 +117,79 @@ def test_finalize_matches_plain(cuda_device):
 def test_solver_matches_stencil_backend(cuda_device, backend):
     """f64 trajectories of the kernel backends against plain torch, with the
     host reading `active` every 16 iterations and a tolerance exit."""
+    prob = generate_problem(ProblemConfig(12, 10, 9), cuda_device)
+    ref = make_cg(prob.A, max_iter=500, tolerance=1e-10, backend="stencil")(prob.b, prob.x0)
+    res = make_cg(prob.A, max_iter=500, tolerance=1e-10, backend=backend)(prob.b, prob.x0)
+    assert int(res.niters) == int(ref.niters) < 499
+    head = ref.trace > 1e-11 * ref.trace[0]
+    torch.testing.assert_close(res.trace[head], ref.trace[head], rtol=1e-10, atol=0)
+    torch.testing.assert_close(res.x, ref.x, rtol=1e-12, atol=0)
+
+
+def test_k7_matches_plain(cuda_device):
+    op = StencilOperator(33, 17, 9, dtype=torch.float64)
+    u = torch.randn(9, 17, 33, device=cuda_device, dtype=torch.float64)
+    before = st.spmv_stencil_pap_dd.launches
+    y, parts = st.spmv_stencil_pap_dd(op, u)
+    y0, parts0 = st.spmv_stencil_pap_plain(op, u)
+    assert st.spmv_stencil_pap_dd.launches == before + 1
+    _vec(y, y0)
+    _dot(parts.sum(), parts0.sum())
+    with pytest.raises(ValueError, match="pallas_dd"):
+        st.spmv_stencil_pap_dd(op, u.float())
+
+
+WS_TRACE = {torch.float64: (1e-10, 1e-11), torch.float32: (1e-4, 1e-5), torch.bfloat16: (1.5e-2, 1e-4)}
+WS_X_RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+
+
+def _x_close(got, want):
+    if got.dtype == torch.bfloat16:
+        def ordered(t):  # bf16 bits as integers in the order of the values
+            v = t.view(torch.int16).to(torch.int32)
+            return torch.where(v < 0, -32768 - v, v)
+
+        assert int((ordered(got) - ordered(want)).abs().max()) <= 4
+        assert float((got != want).double().mean()) <= 1e-3
+    else:
+        assert float((got - want).abs().max()) <= WS_X_RTOL[got.dtype] * float(want.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stencil", [27, 7])
+@pytest.mark.parametrize("which", ["mega", "stream"])
+@pytest.mark.parametrize("dims", [(33, 17, 9), (200, 170, 150)], ids=["33x17x9", "200x170x150"])
+def test_whole_solve_matches_plain(cuda_device, dims, which, stencil, dtype):
+    from hpccg_tpu_torch.ops.cuda import wholesolve
+
+    kern, plain = ((mk.cg_solve_mega, mk.cg_solve_mega_plain) if which == "mega"
+                   else (sk.cg_solve_stream, sk.cg_solve_stream_plain))
+    prob = generate_problem(ProblemConfig(*dims, stencil=stencil, dtype=dtype), cuda_device)
+    if dims != (33, 17, 9):
+        assert wholesolve.work_items(prob.A) > wholesolve.num_blocks(prob.A, dtype, which == "stream")
+    rtol, floor = WS_TRACE[dtype]
+    args = (prob.A, prob.b, prob.x0)
+    tr = plain(*args, max_iter=30).trace
+    below = torch.nonzero(tr < floor * tr[0])
+    tol = 0.0 if below.numel() == 0 else float(torch.sqrt(tr[int(below[0]) - 1] * tr[int(below[0])]))
+    want = plain(*args, max_iter=30, tolerance=tol)
+    before = kern.launches
+    got, again = (kern(*args, max_iter=30, tolerance=tol) for _ in range(2))
+    torch.cuda.synchronize()
+    assert kern.launches == before + 2
+    n = int(want.niters) + 1
+    assert int(got.niters) == n - 1
+    assert got.x.dtype == dtype and got.trace.dtype == want.trace.dtype
+    torch.testing.assert_close(got.trace[:n], want.trace[:n], rtol=rtol, atol=0)
+    assert bool(torch.isnan(got.trace[n:]).all())
+    _x_close(got.x, want.x)
+    assert torch.equal(got.x, again.x) and torch.equal(got.trace[:n], again.trace[:n])
+
+
+@pytest.mark.parametrize("backend", ["megakernel", "streamkernel", "pallas_dd"])
+def test_whole_solve_and_dd_backends_match_stencil(cuda_device, backend):
+    """f64 trajectories of the new backends against plain torch, with a
+    tolerance exit."""
     prob = generate_problem(ProblemConfig(12, 10, 9), cuda_device)
     ref = make_cg(prob.A, max_iter=500, tolerance=1e-10, backend="stencil")(prob.b, prob.x0)
     res = make_cg(prob.A, max_iter=500, tolerance=1e-10, backend=backend)(prob.b, prob.x0)

@@ -1,4 +1,4 @@
-"""The port's kernels K1-K4 against the JAX package's Pallas kernels.
+"""The port's kernels K1-K4 and K7 against the JAX package's Pallas kernels.
 
 On the CPU every wrapper runs its kernel's plain torch version; the Pallas
 kernels run in interpret mode, as the JAX package's own tests run them. The
@@ -34,6 +34,7 @@ from hpccg_tpu.ops.pallas.stencil_v2 import (  # noqa: E402
     pad_plane3,
     padded_dims,
     spmv_padded_v2,
+    spmv_padded_v2_dd_pap,
     spmv_padded_v2_pap,
     unpad_plane3,
 )
@@ -41,6 +42,7 @@ from hpccg_tpu_torch.config import Stencil  # noqa: E402
 from hpccg_tpu_torch.operators import StencilOperator  # noqa: E402
 from hpccg_tpu_torch.ops.cuda import fused_cg as fc  # noqa: E402
 from hpccg_tpu_torch.ops.cuda import stencil as st  # noqa: E402
+from hpccg_tpu_torch.solver import make_cg  # noqa: E402
 
 VEC_RTOL = {"float64": 1e-13, "float32": 1e-5}
 DOT_RTOL = {"float64": 1e-12, "float32": 1e-4}
@@ -195,6 +197,31 @@ def test_k1_matches_k8_spmv_padded(case, dtype):
     _vec(st.spmv_stencil(op, _grid(op, x), torch.from_numpy(halo)).numpy(), want, dtype)
 
 
+@pytest.mark.parametrize("case", [((13, 10, 7), 27), ((13, 10, 7), 7)], ids=["13x10x7-27pt", "13x10x7-7pt"])
+def test_k7_matches_stencil_v2_dd_pap(case):
+    """K7 (K2's float64 instance, backend pallas_dd) against the TPU's
+    double-float kernel: y rtol 1e-13 (max |d| over max |y|), p.Ap rtol
+    1e-12. The input carries full f64 significands (an f32-representable x
+    would hide the dd kernel's lo channel)."""
+    dims, stencil = case
+    op, jop = _ops(dims, stencil, "float64")
+    rng = np.random.default_rng(5)
+    n = op.local_nrow
+    x = rng.standard_normal(n) * (1 + 1e-9 * rng.standard_normal(n))
+    y_j, pap_j = spmv_padded_v2_dd_pap(jop, pad_plane3(jop, jnp.asarray(x)))
+    y, parts = st.spmv_stencil_pap_dd(op, _grid(op, x))
+    _vec(y.numpy(), unpad_plane3(jop, y_j), "float64")
+    _dot(parts.sum(), pap_j, "float64")
+
+
+def test_k7_refuses_float32():
+    op = StencilOperator(6, 5, 4, dtype=torch.float32)
+    with pytest.raises(ValueError, match="pallas_dd"):
+        st.spmv_stencil_pap_dd(op, torch.zeros(4, 5, 6))
+    with pytest.raises(ValueError, match="pallas_dd"):
+        make_cg(op, backend="pallas_dd")  # the same check, at the backend
+
+
 def test_inactive_launches_write_nothing():
     op = StencilOperator(5, 4, 3)
     g = torch.randn(3, 4, 5, dtype=torch.float64, generator=torch.Generator().manual_seed(0))
@@ -202,6 +229,7 @@ def test_inactive_launches_write_nothing():
     out, out2, parts = torch.full_like(g, 7.0), torch.full_like(g, 8.0), torch.full((1,), 9.0, dtype=g.dtype)
     st.spmv_stencil(op, g, out=out, active=off)
     st.spmv_stencil_pap(op, g, out=out, partials=parts, active=off)
+    st.spmv_stencil_pap_dd(op, g, out=out, partials=parts, active=off)
     st.update_p_apply(op, g, g.clone(), torch.ones(1, dtype=g.dtype), out_p=out, out_ap=out2,
                       partials=parts, active=off)
     x, r = g.clone(), g.clone()

@@ -116,7 +116,7 @@ def test_solver_config_and_backend_resolution():
     assert resolve_backend("auto", "cpu") == "stencil"
     assert resolve_backend("auto", "cuda") == "pallas_fused"
     with pytest.raises(ValueError):
-        make_cg(prob.A, backend="megakernel")
+        make_cg(prob.A, backend="ell")
 
 
 def test_convert_round_trips():
@@ -134,3 +134,27 @@ def test_convert_round_trips():
     for name in ("x", "niters", "normr", "rtrans", "trace"):
         np.testing.assert_array_equal(out[name], np.asarray(getattr(jres, name)))
     assert res.niters.dtype == torch.int32
+
+
+def test_convert_round_trips_bf16():
+    """A JAX bf16 problem and a JAX bf16 whole-solve result cross bit for
+    bit: x in bf16, normr, rtrans and trace in their own float32."""
+    from hpccg_tpu.ops.pallas.megakernel import cg_solve_mega
+
+    jprob, prob = _jax_and_port((6, 5, 4), "bfloat16")
+    assert prob.b.dtype == prob.x0.dtype == prob.xexact.dtype == torch.bfloat16
+    back = problem_to_numpy(prob)
+    for name in ("b", "x0", "xexact"):
+        want = np.asarray(getattr(jprob, name))
+        assert back[name].dtype == want.dtype
+        np.testing.assert_array_equal(back[name].view(np.uint16), want.view(np.uint16))
+    jres = cg_solve_mega(jprob.A, jprob.b, jprob.x0, max_iter=12)
+    res = result_from_numpy(*(np.asarray(getattr(jres, k)) for k in ("x", "niters", "normr", "rtrans", "trace")),
+                            device="cpu")
+    assert res.x.dtype == torch.bfloat16 and res.niters.dtype == torch.int32
+    assert res.normr.dtype == res.rtrans.dtype == res.trace.dtype == torch.float32
+    out = result_to_numpy(res)
+    for name in ("x", "niters", "normr", "rtrans", "trace"):
+        want = np.asarray(getattr(jres, name))
+        assert out[name].dtype == want.dtype
+        np.testing.assert_array_equal(np.atleast_1d(out[name]).view(np.uint8), np.atleast_1d(want).view(np.uint8))
