@@ -15,8 +15,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    whole-solve kernels K5 and K6 against theirs at the same shapes and at
    200x170x150 (more work items than blocks), in float32, float64 and
    bfloat16 (max_iter 30): niters, trace, x, and two kernel solves
-   bit-identical; then K1 and K4 past 2^31 points (64-bit offsets);
-4. main path, two paths, each with every count set to 0 just before it and
+   bit-identical; then K1 and K4 past 2^31 points (64-bit offsets); then
+   the DIA kernels K9/K10 and the ELL gather kernels K11/K12 (which compute
+   what K13/K14 compute) against theirs, float32 and float64, on the
+   stencil at 100^3 and 128^3, a 1000-diagonal band, the permuted 64^3
+   stencil as loaded and after RCM, a random wide scatter and a skewed
+   matrix (phase_sparse_kernels);
+4. main paths, each with every count set to 0 just before it and
    read just after: (a) slice 1, make_cg on the generated 27-point float32
    problem at 100^3 (max_iter 150) on auto (= pallas_fused), pallas and
    stencil, then at 256^3 (max_iter 50); (b) slice 2, megakernel and
@@ -25,30 +30,45 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    bfloat16 against the float32 stencil trace, megakernel bfloat16 at 100^3
    for 300 iterations (niters 299: exact past bf16's 256), pallas_dd at
    100^3 float64 and pallas_v1 at 100^3 float32 against stencil; one
-   whole-solve launch per solve;
+   whole-solve launch per solve; (c) slice 3, make_cg on generate_ell's
+   128^3 matrix (2,097,152 rows, 55,742,968 nonzeros) as ELL and as DIA,
+   float64 and float32, on auto (K9-K12), each against the stencil backend
+   on the same grid (trace and x, max_iter 50); (d) the wide-scatter solves
+   that K13/K14's launches are counted on: the randomly permuted 128^3
+   float32 stencil through auto_structure (ell+rcm) and as loaded, x in
+   its order against the stencil solve's;
 5. golden: the reference's 10^3 float64 run on pallas_fused, megakernel,
-   streamkernel and pallas_dd;
+   streamkernel and pallas_dd, from an HPC-row file through the CLI (DIA)
+   and through make_cg on the EllMatrix (ELL);
 6. CLI: ``python -m hpccg_tpu_torch 100 100 100 --json`` with
    ``--dtype float32``, ``--backend megakernel --dtype float32`` and
-   ``--dtype bfloat16`` (auto = streamkernel);
+   ``--dtype bfloat16`` (auto = streamkernel); file mode on a 64^3 float64
+   file (dia) and its randomly permuted twin (ell+rcm; ell with
+   ``--no-reorder``), written by the port's writer, 149 iterations each;
 7. timing: slope-timed us per CG iteration for each backend at 100^3 and
    256^3 float32 and the whole-solve backends at 256^3 bfloat16 (CUDA
    events, legs of 65 and 1025 iterations), the whole-solve kernels' device
-   busy share at 100^3, and K1 against the plain matvec. Nothing is
-   asserted on times.
+   busy share at 100^3, and K1 against the plain matvec; at 128^3 float32
+   and float64 the explicit solves (DIA, ELL, the ELL's plain version, the
+   permuted matrix as loaded and after RCM; legs of 17 and 145) and
+   K9-K12 per launch with effective GB/s. Nothing is asserted on times.
 
-The line before the last is the kernels' JSON; the last line is
+Each phase prints its seconds. The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import functools
 import io
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -64,10 +84,21 @@ KERNELS = {
     "K6 whole solve, Ap recomputed (streamkernel)": ("hpccg_tpu_torch/csrc/wholesolve.cu",
                                                      "hpccg_tpu/ops/pallas/streamkernel.py:92"),
     "K7 f64 stencil (pallas_dd)": ("hpccg_tpu_torch/csrc/stencil.cu", "hpccg_tpu/ops/pallas/stencil_v2.py:496"),
+    "K9 DIA spmv": ("hpccg_tpu_torch/csrc/dia.cu", "hpccg_tpu/ops/pallas/dia_kernel.py:76"),
+    "K10 f64 DIA spmv": ("hpccg_tpu_torch/csrc/dia.cu", "hpccg_tpu/ops/pallas/dia_kernel.py:425"),
+    "K11 ELL gather spmv": ("hpccg_tpu_torch/csrc/ell.cu", "hpccg_tpu/ops/pallas/gell_kernel.py:572"),
+    "K12 f64 ELL gather spmv": ("hpccg_tpu_torch/csrc/ell.cu", "hpccg_tpu/ops/pallas/gell_kernel.py:618"),
+    "K13 wide scatter, strip stack (ELL gather)": ("hpccg_tpu_torch/csrc/ell.cu",
+                                                    "hpccg_tpu/ops/pallas/gell_stack.py:424"),
+    "K14 wide scatter, dynamic window (ELL gather)": ("hpccg_tpu_torch/csrc/ell.cu",
+                                                       "hpccg_tpu/ops/pallas/gell_dynwin.py:336"),
 }
 SLICE1 = list(KERNELS)[:5]  # the kernels of slice 1's main path
-SLICE2 = list(KERNELS)[5:]
+SLICE2 = list(KERNELS)[5:8]
+SLICE3 = list(KERNELS)[8:]
 K5, K6, K7 = SLICE2
+K9, K10, K11, K12, K13, K14 = SLICE3
+WIDE = [K13, K14]  # counted on the wide-scatter solve
 # tolerances, kernel vs plain on the same inputs: the sums run in another
 # order (the xy-sums associate like the plain version, but the compiler may
 # contract into FMAs, and the dots are per-block trees)
@@ -147,27 +178,25 @@ def _dot_err(a, b, dtype, what):
     return abs(a - b)
 
 
-def _device_ms(fn, reps=20) -> float:
-    """Device time per call of fn: the sum of the card's kernel durations
-    that torch.profiler records over ``reps`` calls. (CUDA events around
-    back-to-back calls would time the host instead: each wrapper call costs
-    more host time than a 100^3 kernel takes on the card.)"""
+def _profile(fn, reps, kernel) -> list:
+    """The card's kernel events (torch.profiler's key_averages) over
+    ``reps`` calls of fn. The profiler drops device events now and then
+    (PERF.md, PR 3): a profile that holds fewer than ``reps`` launches of a
+    kernel whose name contains ``kernel`` is taken again, up to 3 times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(
-        getattr(ev, "device_time_total", 0.0)
-        for ev in prof.key_averages()
-        if ev.device_type == torch.autograd.DeviceType.CUDA
-    )
-    if total_us <= 0:
-        raise AssertionError("torch.profiler recorded no device time")
-    return total_us / 1e3 / reps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [ev for ev in prof.key_averages() if ev.device_type == torch.autograd.DeviceType.CUDA]
+        if sum(ev.count for ev in events if kernel in ev.key) >= reps:
+            return events
+        say(f"[timing] torch.profiler dropped device events (want {reps} launches of {kernel}); profiling again")
+    raise AssertionError("torch.profiler recorded too few device events three times")
 
 
 def phase_kernels() -> dict:
@@ -431,15 +460,42 @@ def _time_kernels(st, fc, op, u, r, p, beta, stats, names) -> None:
         _time_pair(stats[name], kern, plain)
 
 
+def _graph_ms(fn, reps=20) -> float:
+    """Device ms per call of fn: ``reps`` calls captured in one CUDA graph
+    and replayed between two CUDA events. Neither the host (each wrapper
+    call costs more host time than a 100^3 kernel takes on the card) nor
+    the profiler is in the measurement: torch.profiler drops device events
+    now and then (one run read K12 at 4.2 TB/s, past the card's 3.35,
+    PERF.md, PR 3)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def _time_pair(stat, kern, plain) -> None:
-    """Device ms per call of kern and plain, timed plain, kernel, kernel,
-    plain: the two versions share the card's state."""
-    t_plain1, t_k1, t_k2, t_plain2 = (_device_ms(f) for f in (plain, kern, kern, plain))
+    """Device ms per call of kern and plain (_graph_ms), timed plain,
+    kernel, kernel, plain: the two versions share the card's state."""
+    t_plain1, t_k1, t_k2, t_plain2 = (_graph_ms(f) for f in (plain, kern, kern, plain))
     stat["ms"] = (t_k1 + t_k2) / 2
     stat["plain_ms"] = (t_plain1 + t_plain2) / 2
 
 
-def _counts():
+def _counters():
+    """kernel -> (wrapper, attribute) of its launch count. K13 and K14 are
+    computed by the ELL kernel's float32 instance: their count is K11's, read
+    on the wide-scatter solve."""
+    from hpccg_tpu_torch.ops.cuda import dia as cdia
+    from hpccg_tpu_torch.ops.cuda import ell as cell
     from hpccg_tpu_torch.ops.cuda import fused_cg as fc
     from hpccg_tpu_torch.ops.cuda import megakernel as mk
     from hpccg_tpu_torch.ops.cuda import stencil as st
@@ -447,7 +503,19 @@ def _counts():
 
     wrappers = [st.spmv_stencil, st.spmv_stencil_pap, st.update_p_apply, fc.update_x_r, fc.cg_finalize,
                 mk.cg_solve_mega, sk.cg_solve_stream, st.spmv_stencil_pap_dd]
-    return dict(zip(KERNELS, wrappers))
+    counters = [(w, "launches") for w in wrappers]
+    counters += [(cdia.spmv_dia, "launches_f32"), (cdia.spmv_dia, "launches_f64"),
+                 (cell.spmv_ell, "launches_f32"), (cell.spmv_ell, "launches_f64"),
+                 (cell.spmv_ell, "launches_f32"), (cell.spmv_ell, "launches_f32")]
+    return dict(zip(KERNELS, counters))
+
+
+def _counts() -> dict:
+    return {name: getattr(w, attr) for name, (w, attr) in _counters().items()}
+
+
+def _launch_note(delta) -> str:
+    return json.dumps({n.split()[0]: d for n, d in delta.items() if d and n not in WIDE})
 
 
 def _trace_check(tr, ref, what, rtol=1e-4, floor=1e-7):
@@ -482,20 +550,19 @@ def _solve_all(dims, max_iter, backends, dtype=torch.float32):
 
     prob = generate_problem(ProblemConfig(*dims, stencil=27, dtype=dtype), device="cuda")
     out = {}
-    wrappers = _counts()
     for backend in backends:
-        before = {n: w.launches for n, w in wrappers.items()}
+        before = _counts()
         res = make_cg(prob.A, max_iter=max_iter, tolerance=0.0, backend=backend)(prob.b, prob.x0)
         torch.cuda.synchronize()
         niters, normr = int(res.niters), float(res.normr)
-        delta = {n: w.launches - before[n] for n, w in wrappers.items()}
+        delta = {n: c - before[n] for n, c in _counts().items()}
         if niters != max_iter - 1 or not math.isfinite(normr):
             raise AssertionError(f"{backend} {dims} {dtype}: niters {niters}, normr {normr}")
         if not bool(torch.isfinite(res.x).all()):
             raise AssertionError(f"{backend} {dims} {dtype}: non-finite x")
         out[backend] = (res.trace.double().cpu(), delta, res)
         say(f"[main] {dims} {str(dtype)[6:]} {backend}: niters {niters} normr {normr:.6e} "
-            f"launches {json.dumps({n.split()[0]: d for n, d in delta.items() if d})}")
+            f"launches {_launch_note(delta)}")
     return out
 
 
@@ -503,11 +570,10 @@ def _drive(path, kernels) -> dict:
     """Run one main path with every launch count set to 0 just before it;
     returns the counts read just after, and fails unless each of the path's
     kernels was launched."""
-    wrappers = _counts()
-    for w in wrappers.values():
-        w.launches = 0
+    for w, attr in _counters().values():
+        setattr(w, attr, 0)
     path()
-    launches = {n: w.launches for n, w in wrappers.items()}
+    launches = _counts()
     for name in kernels:
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on its main path")
@@ -626,64 +692,419 @@ def _main_path_slice2() -> None:
         f"{tail:.2e} below")
 
 
+# ------------------------------------------------------------ slice 3: explicit matrices
+
+EXPLICIT_SHAPE = (128, 128, 128)  # the slice's main path: 2,097,152 rows, 55,742,968 nonzeros
+EXPLICIT_ITERS = 50
+# explicit solve against the stencil backend on the same grid: (trace rtol,
+# floor) as _trace_check takes them, and x within X_RTOL of max|x|
+EXPLICIT_TRACE = {torch.float64: (1e-10, 1e-11), torch.float32: (1e-4, 1e-7)}
+EXPLICIT_X_RTOL = {torch.float64: 1e-10, torch.float32: 1e-4}
+SPARSE_DTYPES = (torch.float32, torch.float64)
+
+
+def _stencil_ell(dims, dtype, device="cuda"):
+    from hpccg_tpu_torch import ProblemConfig
+    from hpccg_tpu_torch.models.stencil import generate_ell
+
+    return generate_ell(ProblemConfig(*dims, dtype=dtype), device)
+
+
+@functools.cache
+def _explicit_128(dtype):
+    """generate_ell(128^3) on the card and its DIA, built once per dtype."""
+    prob = _stencil_ell(EXPLICIT_SHAPE, dtype)
+    if (prob.total_nrow, prob.A.nnz) != (2_097_152, 55_742_968):
+        raise AssertionError(f"128^3: {prob.total_nrow} rows, {prob.A.nnz} nonzeros")
+    return prob, prob.A.to_dia()
+
+
+def _cast(A, dtype, device="cuda"):
+    """EllMatrix A with its values in ``dtype``, on ``device``."""
+    return dataclasses.replace(A, vals=A.vals.to(dtype)).to(device)
+
+
+def _permuted(prob, seed):
+    """The problem with rows and columns randomly permuted (b and xexact
+    with them), on the host: a wide scatter whose band RCM recovers. Returns
+    (problem, perm): row i of the result is row perm[i] of ``prob``."""
+    import numpy as np
+
+    from hpccg_tpu_torch.reorder import permute_ell
+
+    perm = np.random.default_rng(seed).permutation(prob.total_nrow)
+    index = torch.from_numpy(perm)
+    A = permute_ell(prob.A.to("cpu"), perm)
+    return dataclasses.replace(prob, A=A, b=prob.b.cpu()[index], xexact=prob.xexact.cpu()[index]), perm
+
+
+@functools.cache
+def _permuted_128():
+    """The randomly permuted 128^3 float32 stencil on the host, and what
+    auto_structure makes of it: (twin, perm0, op, perm, report)."""
+    from hpccg_tpu_torch.reorder import auto_structure
+
+    t0 = time.perf_counter()
+    twin, perm0 = _permuted(_stencil_ell(EXPLICIT_SHAPE, torch.float32, "cpu"), 7)
+    t1 = time.perf_counter()
+    op, perm, report = auto_structure(twin.A)
+    say(f"[main] permuted 128^3 f32: {report.format} — {report.reason} (permuting {t1 - t0:.1f} s, "
+        f"auto_structure {time.perf_counter() - t1:.1f} s on the host)")
+    return twin, perm0, op, perm, report
+
+
+def _random_band(n, ndiag, span, dtype, gen):
+    """A random DIA band on the card: ndiag distinct offsets in [-span,
+    span], 0 among them, zeros outside each diagonal."""
+    from hpccg_tpu_torch.operators import DiaMatrix
+
+    cand = (torch.randperm(2 * span + 1, generator=gen, device="cuda") - span).tolist()
+    offs = sorted([0] + [o for o in cand if o != 0][: ndiag - 1])
+    data = torch.randn((ndiag, n), generator=gen, device="cuda", dtype=dtype)
+    for d, off in enumerate(offs):
+        data[d, : max(0, -off)] = 0
+        data[d, min(n, n - off):] = 0
+    return DiaMatrix(data=data, offsets=tuple(offs), total_nrow=n)
+
+
+def _wide_scatter(n, per_row, bw, dtype, gen):
+    """A random wide scatter on the card (the class of the JAX package's
+    strip-stack and dynamic-window tiers, tests/test_gell_stack.py): a
+    dominant diagonal slot, per_row - 1 columns within +-bw, 15% invalid."""
+    from hpccg_tpu_torch.operators import EllMatrix
+
+    rows = torch.arange(n, device="cuda")[:, None]
+    cols = (rows + torch.randint(-bw, bw + 1, (n, per_row), generator=gen, device="cuda")).clamp_(0, n - 1)
+    cols[:, 0] = rows[:, 0]
+    vals = torch.rand((n, per_row), generator=gen, device="cuda", dtype=dtype) * 0.9 - 1.0
+    vals[:, 0] = per_row + 1.0
+    valid = torch.rand((n, per_row), generator=gen, device="cuda") >= 0.15
+    valid[:, 0] = True
+    return EllMatrix(vals=torch.where(valid, vals, 0), cols=torch.where(valid, cols, 0).to(torch.int32),
+                     valid=valid, start_row=0, total_nrow=n)
+
+
+def _skewed(A, width=240):
+    """EllMatrix A (on the card) padded to ``width`` slots, with row 5 using
+    all of them: every row streams ``width`` slots."""
+    n = A.local_nrow
+    vals = torch.zeros((n, width), dtype=A.dtype, device="cuda")
+    cols = torch.zeros((n, width), dtype=torch.int32, device="cuda")
+    valid = torch.zeros((n, width), dtype=torch.bool, device="cuda")
+    vals[:, : A.width], cols[:, : A.width], valid[:, : A.width] = A.vals, A.cols, A.valid
+    vals[5], cols[5], valid[5] = 0.01, (torch.arange(width, device="cuda") * (n // width)).to(torch.int32), True
+    return dataclasses.replace(A, vals=vals, cols=cols, valid=valid)
+
+
+def _sparse_pair(kern, plain, dtype, what, exact) -> float:
+    """Kernel against plain on the same inputs: within VEC_RTOL (bit for bit
+    where ``exact``), and two launches bit-identical."""
+    got, again = kern(), kern()
+    want = plain()
+    torch.cuda.synchronize()
+    err = _vec_err(got, want, dtype, what)
+    if exact and not torch.equal(_bits(got), _bits(want)):
+        raise AssertionError(f"{what}: the kernel differs from its plain version (max {err:.3e})")
+    if not torch.equal(_bits(got), _bits(again)):
+        raise AssertionError(f"{what}: two launches differ")
+    return err
+
+
+def _gbs(nbytes, ms) -> float:
+    return nbytes / (ms * 1e-3) / 1e9
+
+
+def _dia_bytes(D) -> int:
+    """The DIA byte model: ndiag*n*s of data, x and y."""
+    return (D.ndiag + 2) * D.local_nrow * D.data.element_size()
+
+
+def _ell_bytes(S) -> int:
+    """The ELL byte model (S an EllMatrix or its slot-major layout):
+    width*n*(s + 4) of values and columns, x and y."""
+    s = S.vals.element_size()
+    return S.width * S.local_nrow * (s + 4) + 2 * S.local_nrow * s
+
+
+def phase_sparse_kernels(card: str) -> dict:
+    """K9-K12 against their plain versions, float32 and float64: the DIA of
+    the 27-point stencil at 100^3 and 128^3 and a random 1000-diagonal band
+    at n = 1,000,003; the ELL of the stencil at 100^3 and 128^3, the randomly
+    permuted 64^3 stencil as loaded (the wide-scatter class of K13) and
+    after RCM, a random wide scatter (n = 10^6, 9 slots within +-3*10^5: the
+    class of K14), and a skewed matrix (one row of 240 slots). DIA must match
+    bit for bit (same sums, same roundings), ELL within VEC_RTOL; two launches
+    bit-identical. Device time per launch (_time_pair), kernel and plain in
+    turns, with effective GB/s under the byte models of _dia_bytes and
+    _ell_bytes. The kernels line takes K9-K12's times at 128^3 and K13's /
+    K14's on their classes in float32."""
+    from hpccg_tpu_torch.ops.cuda import dia as cdia
+    from hpccg_tpu_torch.ops.cuda import ell as cell
+    from hpccg_tpu_torch.reorder import permute_ell, rcm_permutation
+
+    stats = {name: {"max_abs_err": 0.0} for name in SLICE3}
+    gen = torch.Generator(device="cuda").manual_seed(2024)
+    perm64, _ = _permuted(_stencil_ell((64, 64, 64), torch.float64, "cpu"), 1)
+    rcm64 = permute_ell(perm64.A, rcm_permutation(perm64.A))
+    for dtype in SPARSE_DTYPES:
+        f32 = dtype == torch.float32
+        k_dia, k_ell = (K9, K11) if f32 else (K10, K12)
+        dia_cases = [("100^3 stencil", _stencil_ell((100,) * 3, dtype).A.to_dia()),
+                     ("128^3 stencil", _explicit_128(dtype)[1]),
+                     ("1000-diagonal band n=1000003", _random_band(1_000_003, 1000, 4000, dtype, gen))]
+        for tag, D in dia_cases:
+            P = cdia.prepare_dia(D)
+            x = torch.randn(D.local_nrow, generator=gen, device="cuda", dtype=dtype)
+            out = torch.empty_like(x)
+            what = f"{k_dia.split()[0]} {tag} {str(dtype)[6:]}"
+            err = _sparse_pair(lambda: cdia.spmv_dia(P, x), lambda: cdia.spmv_dia_plain(P, x), dtype, what, True)
+            stats[k_dia]["max_abs_err"] = max(stats[k_dia]["max_abs_err"], err)
+            st = stats[k_dia] if tag.startswith("128") else {}
+            _time_pair(st, lambda: cdia.spmv_dia(P, x, out=out), lambda: cdia.spmv_dia_plain(P, x, out=out))
+            nbytes = _dia_bytes(D)
+            say(f"[sparse] {what}: ok, bit for bit; {D.ndiag} diagonals; {st['ms'] * 1e3:.1f} us vs plain "
+                f"{st['plain_ms'] * 1e3:.1f} ({_gbs(nbytes, st['ms']):.0f} vs {_gbs(nbytes, st['plain_ms']):.0f} "
+                f"GB/s) [{card}]")
+        ell_cases = [("100^3 stencil", k_ell, _stencil_ell((100,) * 3, dtype).A),
+                     ("128^3 stencil", k_ell, _explicit_128(dtype)[0].A),
+                     ("permuted 64^3 stencil as loaded", K13, _cast(perm64.A, dtype)),
+                     ("permuted 64^3 stencil after RCM", k_ell, _cast(rcm64, dtype)),
+                     ("wide scatter n=10^6", K14, _wide_scatter(1_000_000, 9, 300_000, dtype, gen)),
+                     ("skewed 100^3 (one row of 240 slots)", k_ell, _skewed(_stencil_ell((100,) * 3, dtype).A))]
+        for tag, name, A in ell_cases:
+            S = cell.prepare_ell(A)
+            x = torch.randn(A.local_nrow, generator=gen, device="cuda", dtype=dtype)
+            out = torch.empty_like(x)
+            what = f"{name.split()[0]} {tag} {str(dtype)[6:]}"
+            err = _sparse_pair(lambda: cell.spmv_ell(S, x), lambda: cell.spmv_ell_plain(S, x), dtype, what, False)
+            for key in {name, k_ell}:
+                stats[key]["max_abs_err"] = max(stats[key]["max_abs_err"], err)
+            st = stats[name] if tag.startswith("128") or (name in WIDE and f32) else {}
+            _time_pair(st, lambda: cell.spmv_ell(S, x, out=out), lambda: cell.spmv_ell_plain(S, x, out=out))
+            nbytes = _ell_bytes(S)
+            say(f"[sparse] {what}: ok, max err {err:.2e}; width {S.width}; {st['ms'] * 1e3:.1f} us vs plain "
+                f"{st['plain_ms'] * 1e3:.1f} ({_gbs(nbytes, st['ms']):.0f} vs {_gbs(nbytes, st['plain_ms']):.0f} "
+                f"GB/s) [{card}]")
+    return stats
+
+
+def _explicit_solve(A, b, x0, what):
+    """One explicit-matrix solve through make_cg on ``auto``; prints its
+    launches."""
+    from hpccg_tpu_torch import make_cg
+
+    before = _counts()
+    res = make_cg(A, max_iter=EXPLICIT_ITERS, tolerance=0.0)(b, x0)
+    torch.cuda.synchronize()
+    delta = {n: c - before[n] for n, c in _counts().items()}
+    if int(res.niters) != EXPLICIT_ITERS - 1 or not math.isfinite(float(res.normr)):
+        raise AssertionError(f"{what}: niters {int(res.niters)}, normr {float(res.normr)}")
+    if not bool(torch.isfinite(res.x).all()):
+        raise AssertionError(f"{what}: non-finite x")
+    say(f"[main] {what}: niters {int(res.niters)} normr {float(res.normr):.6e} launches {_launch_note(delta)}")
+    return res, delta
+
+
+def _stencil_reference(dtype):
+    """The stencil backend (plain torch) on the StencilOperator of the 128^3
+    grid: what the explicit solves are held against."""
+    from hpccg_tpu_torch import ProblemConfig, generate_problem, make_cg
+
+    sprob = generate_problem(ProblemConfig(*EXPLICIT_SHAPE, dtype=dtype), device="cuda")
+    return make_cg(sprob.A, max_iter=EXPLICIT_ITERS, tolerance=0.0, backend="stencil")(sprob.b, sprob.x0)
+
+
+def _against_stencil(res, ref, dtype, what) -> None:
+    rtol, floor = EXPLICIT_TRACE[dtype]
+    worst, tail = _trace_check(res.trace.double().cpu(), ref.trace.double().cpu(), what, rtol, floor)
+    xerr = float((res.x.double() - ref.x.double()).abs().max())
+    if not xerr <= EXPLICIT_X_RTOL[dtype] * float(ref.x.double().abs().max()):
+        raise AssertionError(f"{what}: max|x - x_stencil| = {xerr:.3e}")
+    say(f"[main] {what}: trace within {worst:.2e} of the stencil backend's above {floor} of trace[0], "
+        f"{tail:.2e} below; max|x - x_stencil| {xerr:.2e}")
+
+
+def _main_path_slice3() -> None:
+    """make_cg on generate_ell(128^3) as ELL and as DIA, float64 and float32,
+    on auto (the matrix's kernel), each against the stencil backend on the
+    StencilOperator of the same grid."""
+    for dtype in (torch.float64, torch.float32):
+        prob, dia = _explicit_128(dtype)
+        ref = _stencil_reference(dtype)
+        f32 = dtype == torch.float32
+        for fmt, A, kernel in (("ELL", prob.A, K11 if f32 else K12), ("DIA", dia, K9 if f32 else K10)):
+            what = f"128^3 {str(dtype)[6:]} {fmt} auto"
+            res, delta = _explicit_solve(A, prob.b, prob.x0, what)
+            if delta[kernel] < EXPLICIT_ITERS:  # the initial Ap and one per iteration
+                raise AssertionError(f"{what}: {kernel} launched {delta[kernel]} times")
+            _against_stencil(res, ref, dtype, what)
+
+
+def _main_path_wide_scatter() -> None:
+    """The randomly permuted 128^3 float32 stencil, the wide-scatter class
+    of K13/K14: through auto_structure (ell+rcm) and solved in its basis, and
+    solved as loaded; x in the permuted problem's order against the stencil
+    solve's."""
+    twin, perm0, op, perm, report = _permuted_128()
+    if report.format != "ell+rcm":
+        raise AssertionError(f"permuted 128^3: expected ell+rcm, got {report.format}")
+    ref = _stencil_reference(torch.float32)
+    ref = dataclasses.replace(ref, x=ref.x[torch.from_numpy(perm0).cuda()])  # in the twin's order
+    index = torch.from_numpy(perm).cuda()
+    b, x0 = twin.b.cuda(), twin.x0.cuda()
+    res, _ = _explicit_solve(op.to("cuda"), b[index], x0[index], "permuted 128^3 f32 ell+rcm auto")
+    x = torch.empty_like(res.x)
+    x[index] = res.x  # the solve basis back to the twin's order
+    _against_stencil(dataclasses.replace(res, x=x), ref, torch.float32, "permuted 128^3 f32 ell+rcm")
+    res, _ = _explicit_solve(twin.A.to("cuda"), b, x0, "permuted 128^3 f32 ELL as loaded auto")
+    _against_stencil(res, ref, torch.float32, "permuted 128^3 f32 ELL as loaded")
+
+
 def phase_main_path() -> dict:
-    """Slice 1's main path, then slice 2's, each with its own counts; the
-    launches reported for each kernel are those of its slice's run."""
+    """Slice 1's main path, slice 2's, slice 3's and its wide-scatter solves,
+    each with its own counts; the launches reported for each kernel are
+    those of its own run."""
     first = _drive(_main_path_slice1, SLICE1)
     second = _drive(_main_path_slice2, SLICE2)
-    return {n: (first if n in SLICE1 else second)[n] for n in KERNELS}
+    third = _drive(_main_path_slice3, [K9, K10, K11, K12])
+    wide = _drive(_main_path_wide_scatter, WIDE)
+    runs = [(SLICE1, first), (SLICE2, second), ([K9, K10, K11, K12], third), (WIDE, wide)]
+    return {n: counts[n] for names, counts in runs for n in names}
+
+
+GOLDEN = {0: 258.24, 15: 2.15402e-06, 30: 2.81972e-20, 45: 6.66682e-30, 60: 7.96609e-39,
+          75: 1.85259e-48, 90: 1.15032e-56, 105: 1.01621e-65, 120: 1.39759e-75,
+          135: 1.07273e-83, 149: 1.68304e-92}  # the reference's out.txt, 10^3
+
+
+def _check_golden(trace, niters, what) -> None:
+    """149 iterations and the golden trace: trace[0] and trace[15] to 6
+    digits, the rest to their order of magnitude."""
+    if niters != 149:
+        raise AssertionError(f"golden {what}: niters {niters}")
+    if abs(trace[0] - GOLDEN[0]) > 1e-5 * GOLDEN[0] or abs(trace[15] - GOLDEN[15]) > 1e-4 * GOLDEN[15]:
+        raise AssertionError(f"golden {what}: trace[0] {trace[0]!r}, trace[15] {trace[15]!r}")
+    for k, ref in GOLDEN.items():
+        if k > 15 and not abs(math.log10(trace[k]) - math.log10(ref)) < 0.05 * abs(math.log10(ref)) + 1.0:
+            raise AssertionError(f"golden {what}: trace[{k}] {trace[k]!r} vs {ref!r}")
+    say(f"[golden] 10^3 float64 {what}: niters 149, trace[0] {trace[0]:.6g}, "
+        f"trace[15] {trace[15]:.6g}, trace[149] {trace[149]:.6g}")
+
+
+def _cli(args, what) -> tuple:
+    """main(args) with its output captured; fails unless it returns 0.
+    Returns (the JSON report, the residual lines as {k: residual}, stderr)."""
+    from hpccg_tpu_torch.cli import main
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(args)
+    if rc != 0:
+        raise AssertionError(f"cli {what} returned {rc}: {err.getvalue()[-2000:]}")
+    text = out.getvalue()
+    trace = {0: float(text.split("Initial Residual = ")[1].split()[0])}
+    for line in text.splitlines():
+        if line.startswith("Iteration = "):  # "Iteration = k   Residual = r"
+            parts = line.split()
+            trace[int(parts[2])] = float(parts[5])
+    return json.loads(text[text.index("\n{") + 1 :]), trace, err.getvalue()
+
+
+def _structure_line(err: str) -> str:
+    return next(line for line in err.splitlines() if line.startswith("# matrix structure: "))
 
 
 def phase_golden() -> None:
+    """The golden run on four stencil backends, from a 10^3 float64 file
+    through the CLI (DIA, K10), and through make_cg on generate_ell's
+    EllMatrix (ELL, K12)."""
     from hpccg_tpu_torch import ProblemConfig, generate_problem, make_cg
+    from hpccg_tpu_torch.io import write_hpc_row
+    from hpccg_tpu_torch.ops.cuda import dia as cdia
+    from hpccg_tpu_torch.ops.cuda import ell as cell
 
-    golden = {0: 258.24, 15: 2.15402e-06, 30: 2.81972e-20, 45: 6.66682e-30, 60: 7.96609e-39,
-              75: 1.85259e-48, 90: 1.15032e-56, 105: 1.01621e-65, 120: 1.39759e-75,
-              135: 1.07273e-83, 149: 1.68304e-92}  # the reference's out.txt, 10^3
     prob = generate_problem(ProblemConfig(10, 10, 10, dtype=torch.float64), device="cuda")
     for backend in ("pallas_fused", "megakernel", "streamkernel", "pallas_dd"):
         res = make_cg(prob.A, max_iter=150, tolerance=0.0, backend=backend)(prob.b, prob.x0)
-        trace = res.trace.cpu().numpy()
-        if int(res.niters) != 149:
-            raise AssertionError(f"golden {backend}: niters {int(res.niters)}")
-        if abs(trace[0] - golden[0]) > 1e-5 * golden[0] or abs(trace[15] - golden[15]) > 1e-4 * golden[15]:
-            raise AssertionError(f"golden {backend}: trace[0] {trace[0]!r}, trace[15] {trace[15]!r}")
-        for k, ref in golden.items():
-            if k > 15 and not abs(math.log10(trace[k]) - math.log10(ref)) < 0.05 * abs(math.log10(ref)) + 1.0:
-                raise AssertionError(f"golden {backend}: trace[{k}] {trace[k]!r} vs {ref!r}")
-        say(f"[golden] 10^3 float64 {backend}: niters 149, trace[0] {trace[0]:.6g}, "
-            f"trace[15] {trace[15]:.6g}, trace[149] {trace[149]:.6g}")
+        _check_golden(res.trace.cpu().numpy(), int(res.niters), backend)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "golden10.txt")
+        write_hpc_row(path, _stencil_ell((10, 10, 10), torch.float64, "cpu"))
+        before = cdia.spmv_dia.launches_f64
+        report, trace, err = _cli([path, "--json"], "golden file")
+        if not _structure_line(err).startswith("# matrix structure: dia —") or cdia.spmv_dia.launches_f64 == before:
+            raise AssertionError(f"golden file: not solved on K10 ({_structure_line(err)})")
+        _check_golden(trace, report["Number of iterations"], "file through the CLI (DIA, K10)")
+    ell = _stencil_ell((10, 10, 10), torch.float64)
+    before = cell.spmv_ell.launches_f64
+    res = make_cg(ell.A, max_iter=150, tolerance=0.0, backend="ell")(ell.b, ell.x0)
+    if cell.spmv_ell.launches_f64 - before < 150:
+        raise AssertionError("golden make_cg(EllMatrix): K12 was not launched once per matvec")
+    _check_golden(res.trace.cpu().numpy(), int(res.niters), "make_cg on the EllMatrix (ELL, K12)")
 
 
 def phase_cli() -> None:
-    from hpccg_tpu_torch.cli import main
-
     for extra in (["--dtype", "float32"], ["--backend", "megakernel", "--dtype", "float32"],
                   ["--dtype", "bfloat16"]):
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            rc = main(["100", "100", "100", "--json", *extra])
-        if rc != 0:
-            raise AssertionError(f"cli {' '.join(extra)} returned {rc}")
-        text = buf.getvalue()
-        report = json.loads(text[text.index("\n{") + 1 :])  # after the residual lines
+        report, _, _ = _cli(["100", "100", "100", "--json", *extra], " ".join(extra))
         if report["Number of iterations"] != 149:
             raise AssertionError(f"cli {' '.join(extra)}: {report['Number of iterations']} iterations")
         say(f"[cli] {' '.join(extra)}: rc 0, iterations 149, "
             f"time summary {json.dumps(report['Time Summary'])}")
 
 
-def _busy_share(run, iters: int, card: str, what: str) -> None:
+def phase_cli_files() -> None:
+    """File mode at 64^3: the 27-point float64 file and its randomly
+    permuted twin (262,144 rows, 6,859,000 nonzeros), written by the port's
+    writer; the CLI solves the first as DIA and the twin as ell+rcm, or as
+    ELL with --no-reorder, 149 iterations each."""
+    from hpccg_tpu_torch.io import read_hpc_row, write_hpc_row
+
+    prob = _stencil_ell((64, 64, 64), torch.float64, "cpu")
+    if (prob.total_nrow, prob.A.nnz) != (262_144, 6_859_000):
+        raise AssertionError(f"64^3: {prob.total_nrow} rows, {prob.A.nnz} nonzeros")
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for name, p in (("stencil", prob), ("permuted", _permuted(prob, 3)[0])):
+            paths[name] = os.path.join(tmp, f"{name}64.txt")
+            t0 = time.perf_counter()
+            write_hpc_row(paths[name], p)
+            t1 = time.perf_counter()
+            read_hpc_row(paths[name], to_dia=False)
+            say(f"[cli] 64^3 {name} file: {os.path.getsize(paths[name]) / 1e6:.1f} MB, write {t1 - t0:.2f} s, "
+                f"read {time.perf_counter() - t1:.2f} s (host)")
+        for name, extra, want in (("stencil", [], "dia"), ("permuted", [], "ell+rcm"),
+                                  ("permuted", ["--no-reorder"], "ell")):
+            what = f"64^3 {name} file {' '.join(extra)}".strip()
+            t0 = time.perf_counter()
+            report, _, err = _cli([paths[name], "--json", *extra], what)
+            line = _structure_line(err)
+            if report["Number of iterations"] != 149 or not line.startswith(f"# matrix structure: {want} —"):
+                raise AssertionError(f"cli {what}: {report['Number of iterations']} iterations; {line}")
+            say(f"[cli] {what}: rc 0, iterations 149, {line[2:]}; {time.perf_counter() - t0:.1f} s; "
+                f"time summary {json.dumps(report['Time Summary'])}")
+
+
+def _busy_share(run, iters: int, card: str, what: str, kernel: str) -> None:
     """Device busy time per iteration (torch.profiler) against the window
-    (CUDA events around an unprofiled run of the same length)."""
+    (CUDA events around an unprofiled run of the same length), with the
+    three kernels that take the most device time."""
     from hpccg_tpu_torch.utils.timing import elapsed
 
     run(iters)
     torch.cuda.synchronize()
     window = elapsed(lambda: run(iters), "cuda") * 1e3 / iters
-    busy = _device_ms(lambda: run(iters), reps=1) / iters
+    try:
+        events = _profile(lambda: run(iters), reps=1, kernel=kernel)
+    except AssertionError:
+        say(f"[timing] {what}: window {window * 1e3:.2f} us/iter; device busy not measured (the profiler "
+            f"dropped {kernel}'s events three times) [{card}]")
+        return
+    busy = sum(ev.device_time_total for ev in events) / 1e3 / iters
+    top = sorted(events, key=lambda ev: -ev.device_time_total)[:3]
+    tops = "; ".join(f"{ev.key[:60]} x{ev.count / iters:g} {ev.device_time_total / iters:.2f} us" for ev in top)
     say(f"[timing] {what}: window {window * 1e3:.2f} us/iter, device busy {busy * 1e3:.2f} us/iter, "
-        f"idle share {max(0.0, 1 - busy / window):.3f} [{card}]")
+        f"idle share {max(0.0, 1 - busy / window):.3f}; per iteration: {tops} [{card}]")
 
 
 def phase_timing(card: str) -> None:
@@ -708,26 +1129,79 @@ def phase_timing(card: str) -> None:
             say(f"[timing] {tag} {backend}: {t * 1e6:.2f} us/iter, "
                 f"{27 * n / t / 1e9:.1f} Gnnz/s (long-leg niters {int(last[-1].niters)}) [{card}]")
             if backend in ("megakernel", "streamkernel") and dims == MAIN_SHAPE:
-                _busy_share(run, 200, card, f"{tag} {backend} one 200-iteration solve")
+                _busy_share(run, 200, card, f"{tag} {backend} one 200-iteration solve", "wholesolve_kernel")
         if dtype == torch.float32:
             u = prob.A.grid(prob.b)
             out = torch.empty_like(u)
-            t_k = _device_ms(lambda: spmv_stencil(prob.A, u, out=out), reps=100)
-            t_p = _device_ms(lambda: spmv_stencil_plain(prob.A, u, out=out), reps=100)
+            t_k = _graph_ms(lambda: spmv_stencil(prob.A, u, out=out), reps=100)
+            t_p = _graph_ms(lambda: spmv_stencil_plain(prob.A, u, out=out), reps=100)
             say(f"[timing] {tag} K1 {t_k * 1e3:.2f} us vs plain matvec {t_p * 1e3:.2f} us "
                 f"({27 * n / (t_k / 1e3) / 1e9:.1f} vs {27 * n / (t_p / 1e3) / 1e9:.1f} Gnnz/s) [{card}]")
 
 
+def phase_timing_explicit(card: str, stats: dict) -> None:
+    """us per CG iteration at 128^3, float32 and float64, slope-timed (legs
+    of 17 and 145 iterations): DIA and ELL on auto (K9-K12), the ELL on
+    stencil (its plain version), and the randomly permuted matrix on auto as
+    loaded and after RCM; then K9-K12's device time per launch from phase 3
+    with effective GB/s."""
+    from hpccg_tpu_torch import make_cg
+    from hpccg_tpu_torch.utils.timing import time_loop_slope
+
+    twin, _, rcm, perm, _ = _permuted_128()
+    index = torch.from_numpy(perm)
+    n = twin.total_nrow
+    for dtype in SPARSE_DTYPES:
+        prob, dia = _explicit_128(dtype)
+        cells = [("DIA auto", dia, prob.b, prob.x0, "auto"), ("ELL auto", prob.A, prob.b, prob.x0, "auto"),
+                 ("ELL stencil (plain)", prob.A, prob.b, prob.x0, "stencil"),
+                 ("permuted ELL as loaded, auto", _cast(twin.A, dtype), twin.b.to("cuda", dtype),
+                  twin.x0.to("cuda", dtype), "auto"),
+                 ("permuted ELL after RCM, auto", _cast(rcm, dtype), twin.b[index].to("cuda", dtype),
+                  twin.x0[index].to("cuda", dtype), "auto")]
+        for tag, A, b, x0, backend in cells:
+            last = []
+
+            def run(k):
+                last.append(make_cg(A, max_iter=k + 1, tolerance=0.0, backend=backend)(b, x0))
+
+            t = time_loop_slope(run, device="cuda", short=17, long=145)
+            say(f"[timing] 128^3 {str(dtype)[6:]} {tag}: {t * 1e6:.2f} us/iter, {27 * n / t / 1e9:.1f} Gnnz/s "
+                f"(long-leg niters {int(last[-1].niters)}) [{card}]")
+            if backend == "auto" and not tag.startswith("permuted"):
+                _busy_share(run, EXPLICIT_ITERS, card, f"128^3 {str(dtype)[6:]} {tag} one {EXPLICIT_ITERS}-iteration "
+                            "solve", "dia_spmv_kernel" if tag.startswith("DIA") else "ell_spmv_kernel")
+    for name, model in ((K9, _dia_bytes(_explicit_128(torch.float32)[1])),
+                        (K10, _dia_bytes(_explicit_128(torch.float64)[1])),
+                        (K11, _ell_bytes(_explicit_128(torch.float32)[0].A)),
+                        (K12, _ell_bytes(_explicit_128(torch.float64)[0].A))):
+        st = stats[name]
+        say(f"[timing] {name} at 128^3: {st['ms'] * 1e3:.1f} us per launch vs plain {st['plain_ms'] * 1e3:.1f} "
+            f"({_gbs(model, st['ms']):.0f} vs {_gbs(model, st['plain_ms']):.0f} GB/s of {model / 1e6:.0f} MB) "
+            f"[{card}]")
+
+
+def _phase(name, fn, *args):
+    """fn(*args), with its seconds printed."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    say(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
-    card = phase_device()
-    phase_build()
-    stats = phase_kernels()
-    stats.update(phase_whole_solve_kernels())
-    phase_large_offsets()
-    launches = phase_main_path()
-    phase_golden()
-    phase_cli()
-    phase_timing(card)
+    card = _phase("device", phase_device)
+    _phase("build", phase_build)
+    stats = _phase("kernels vs plain (stencil)", phase_kernels)
+    stats.update(_phase("whole-solve kernels vs plain", phase_whole_solve_kernels))
+    _phase("large offsets", phase_large_offsets)
+    stats.update(_phase("sparse kernels vs plain", phase_sparse_kernels, card))
+    launches = _phase("main paths", phase_main_path)
+    _phase("golden", phase_golden)
+    _phase("cli", phase_cli)
+    _phase("cli, file mode", phase_cli_files)
+    _phase("timing", phase_timing, card)
+    _phase("timing, explicit matrices", phase_timing_explicit, card, stats)
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name],
          "max_abs_err": stats[name]["max_abs_err"], "ms": stats[name]["ms"],

@@ -1,16 +1,24 @@
-"""Command line (ref main.cpp:99-324; ``hpccg_tpu.cli``, stencil mode).
+"""Command line (ref main.cpp:99-324; ``hpccg_tpu.cli``).
 
 Usage:
-    python -m hpccg_tpu_torch nx ny nz [options]
+    python -m hpccg_tpu_torch nx ny nz [options]   # generated stencil problem
+    python -m hpccg_tpu_torch FILE [options]       # HPC-row file (file mode)
 
-Generates the stencil problem on the device, runs the reference CG
-recurrence, prints the per-iteration residual lines and the YAML (or JSON)
-report with the JAX package's keys: Time/FLOPS/MFLOPS summaries and the FLOP
-model of main.cpp:224-227.
+Stencil mode generates the problem on the device. File mode (main.cpp:
+161-179) reads an HPC-row file, picks the representation it solves in
+(``io.read_hpc_row_structured``: DIA or ELL, RCM-reordered where that
+exposes a band, or not with ``--no-reorder``; the choice is printed on
+stderr as ``# matrix structure: <format> — <reason>``) and solves in that
+basis; ``--check`` and ``--validate`` work in the solve basis, and the
+report's nx, ny and nz are 0. Both run the reference CG recurrence, print
+the per-iteration residual lines and the YAML (or JSON) report with the JAX
+package's keys: Time/FLOPS/MFLOPS summaries and the FLOP model of
+main.cpp:224-227.
 
 Total is timed with CUDA events around a warm solve (the host clock on the
 CPU). SPARSEMV is slope-timed on K1 (empty for bfloat16: K1 has no bf16
-instance yet); DDOT and WAXPBY on the plain torch ops, or, for
+instance yet), in file mode on the matrix's kernel (K9/K10 for DIA,
+K11/K12 for ELL; the plain matvec on backend ``stencil``); DDOT and WAXPBY on the plain torch ops, or, for
 ``pallas_fused``, WAXPBY on K4 (the fused x/r update with r.r) and DDOT
 left empty because it is fused into K3/K4. For the whole-solve backends
 (``megakernel``, ``streamkernel``) both are left empty: they are fused into
@@ -25,9 +33,13 @@ import sys
 
 import torch
 
+from hpccg_tpu_torch.operators import DiaMatrix, StencilOperator
 from hpccg_tpu_torch.solver import BACKENDS, WHOLE_SOLVE_BACKENDS
 
-NOT_PORTED_BACKENDS = ("ell", "dia", "collective")
+# backends of explicit matrices only: on a generated problem the JAX package
+# runs its stencil matvec under these names, which is not ported
+FILE_BACKENDS = ("ell", "dia")
+NOT_PORTED_BACKENDS = ("collective",)
 DTYPES = {"float64": torch.float64, "float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -36,7 +48,7 @@ def build_argparser() -> argparse.ArgumentParser:
         prog="hpccg_tpu_torch",
         description="HPCCG 3-D stencil conjugate gradient on PyTorch/CUDA",
     )
-    ap.add_argument("dims", nargs="+", help="nx ny nz")
+    ap.add_argument("dims", nargs="+", help="nx ny nz, or an HPC-row data file")
     ap.add_argument("--stencil", type=int, default=27, choices=[27, 7])
     ap.add_argument("--max-iter", type=int, default=150)
     ap.add_argument("--tolerance", type=float, default=0.0)
@@ -51,8 +63,9 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument(
         "--backend",
         default="auto",
-        choices=[*BACKENDS, *NOT_PORTED_BACKENDS],
-        help="auto = pallas_fused on CUDA (streamkernel for bfloat16), stencil on the CPU",
+        choices=[*BACKENDS, *FILE_BACKENDS, *NOT_PORTED_BACKENDS],
+        help="auto = pallas_fused on CUDA (streamkernel for bfloat16), stencil on the CPU; in file mode "
+        "auto/ell/dia run the matrix's kernel and stencil its plain version",
     )
     ap.add_argument("--method", default="cg", choices=["cg", "cg1", "pipecg"])
     ap.add_argument("--refine", type=int, default=0, metavar="N")
@@ -60,6 +73,10 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--json", action="store_true", help="emit JSON instead of YAML")
     ap.add_argument("--quiet", action="store_true", help="suppress residual lines")
     ap.add_argument("--skip-kernel-bench", action="store_true", help="skip per-kernel micro-benchmarks")
+    ap.add_argument("--no-reorder", action="store_true",
+                    help="file mode: no RCM reordering (solve in the file's row order)")
+    ap.add_argument("--stream-load", action="store_true", help="not yet ported (distributed loading)")
+    ap.add_argument("--dump-matlab", metavar="PREFIX", help="not yet ported")
     ap.add_argument("--check", action="store_true", help="report max|x - xexact| after the solve")
     ap.add_argument(
         "--validate",
@@ -69,10 +86,21 @@ def build_argparser() -> argparse.ArgumentParser:
     return ap
 
 
+def _file_mode(args) -> bool:
+    return len(args.dims) == 1 and not args.dims[0].isdigit()
+
+
 def _not_ported(args) -> str | None:
     """The first requested feature that waits for a later slice, if any."""
-    if len(args.dims) != 3 or not all(d.isdigit() for d in args.dims):
-        return "file mode"
+    file_mode = _file_mode(args)
+    if args.stream_load:
+        return "--stream-load"
+    if args.dump_matlab:
+        return "--dump-matlab"
+    if file_mode and args.dtype == "bfloat16":
+        return "--dtype bfloat16 in file mode"
+    if not file_mode and args.backend in FILE_BACKENDS:
+        return f"--backend {args.backend} on a generated problem"
     if args.mesh != "1":
         return f"--mesh {args.mesh}"
     if args.method != "cg":
@@ -84,6 +112,23 @@ def _not_ported(args) -> str | None:
     return None
 
 
+def _explicit_spmv(A, backend_used):
+    """out = A u for an explicit matrix: its kernel (K9/K10 or K11/K12, the
+    layout built here once), or the plain matvec on backend ``stencil``."""
+    if backend_used == "stencil":
+        return lambda u, out: out.copy_(A.matvec(u))
+    from hpccg_tpu_torch.solver import explicit_kernel
+
+    matvec = explicit_kernel(A)
+    return lambda u, out: matvec(u, out=out)
+
+
+def _explicit_backend(A, backend: str) -> str:
+    """What an explicit matrix runs on: ``stencil`` (the plain versions) or
+    ``native(<type>)``, its own kernel (the JAX CLI's label)."""
+    return "stencil" if backend == "stencil" else f"native({type(A).__name__})"
+
+
 def _kernel_bench(prob, backend_used, device):
     """Seconds per call of (ddot, waxpby, spmv), slope-timed; NaN where a
     row is fused into another kernel or has no kernel for the dtype."""
@@ -93,11 +138,18 @@ def _kernel_bench(prob, backend_used, device):
     from hpccg_tpu_torch.utils.timing import time_loop_slope
 
     op = prob.A
-    bufs = [op.grid(prob.xexact.clone()), torch.empty_like(op.grid(prob.b))]
+    if isinstance(op, StencilOperator):
+        bufs = [op.grid(prob.xexact.clone()), torch.empty_like(op.grid(prob.b))]
+
+        def apply(u, out):
+            spmv_stencil(op, u, out=out)
+    else:
+        bufs = [prob.xexact.clone(), torch.empty_like(prob.b)]
+        apply = _explicit_spmv(op, backend_used)
 
     def spmv_loop(k):
         for i in range(k):
-            spmv_stencil(op, bufs[i % 2], out=bufs[(i + 1) % 2])
+            apply(bufs[i % 2], bufs[(i + 1) % 2])
 
     # K1 has no bf16 instance yet
     t_spmv = float("nan") if prob.b.dtype == torch.bfloat16 else time_loop_slope(spmv_loop, device=device)
@@ -142,6 +194,10 @@ def main(argv=None) -> int:
     if missing is not None:
         print(f"error: {missing} is not yet ported to hpccg_tpu_torch", file=sys.stderr)
         return 2
+    file_mode = _file_mode(args)
+    if not file_mode and (len(args.dims) != 3 or not all(d.isdigit() for d in args.dims)):
+        print(f"error: expected nx ny nz or one HPC-row file, got {' '.join(args.dims)}", file=sys.stderr)
+        return 2
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("error: no CUDA device available; pass --device cpu to run on the CPU")
@@ -152,10 +208,23 @@ def main(argv=None) -> int:
     from hpccg_tpu_torch.utils.timing import elapsed, fence
 
     dtype = DTYPES[args.dtype]
-    nx, ny, nz = (int(d) for d in args.dims)
-    cfg = ProblemConfig(nx, ny, nz, stencil=args.stencil, dtype=dtype)
-    prob = generate_problem(cfg, device)
-    backend_used = resolve_backend(args.backend, device, dtype)
+    if file_mode:
+        from hpccg_tpu_torch.io import read_hpc_row_structured
+
+        try:
+            prob, _perm, structure = read_hpc_row_structured(args.dims[0], dtype=dtype,
+                                                             reorder=not args.no_reorder, device=device)
+        except (OSError, ValueError) as err:
+            print(f"error: cannot read {args.dims[0]}: {err}", file=sys.stderr)
+            return 2
+        print(f"# matrix structure: {structure.format} — {structure.reason}", file=sys.stderr)
+        nx = ny = nz = 0
+        backend_used = _explicit_backend(prob.A, args.backend)
+    else:
+        nx, ny, nz = (int(d) for d in args.dims)
+        cfg = ProblemConfig(nx, ny, nz, stencil=args.stencil, dtype=dtype)
+        prob = generate_problem(cfg, device)
+        backend_used = resolve_backend(args.backend, device, dtype)
     try:
         solve = make_cg(prob.A, max_iter=args.max_iter, tolerance=args.tolerance, backend=args.backend)
     except ValueError as err:  # a dtype the backend's kernels do not take
@@ -177,7 +246,7 @@ def main(argv=None) -> int:
 
     niters = int(res.niters)
     normr = float(res.normr)
-    trace = res.trace.float().cpu().numpy()  # a bf16 trace (stencil) has no numpy dtype
+    trace = res.trace.double().cpu().numpy()  # exact for every dtype (bf16 has no numpy dtype)
 
     check_residual = None
     if args.check:
@@ -250,9 +319,15 @@ def main(argv=None) -> int:
         fused_note = "; DDOT and WAXPBY are fused into the whole-solve kernel (one launch per solve)"
     if dtype == torch.bfloat16:
         fused_note += "; SPARSEMV is empty: K1 has no bfloat16 instance yet"
+    if not file_mode:
+        spmv_note = "the K1 stencil kernel"
+    elif backend_used == "stencil":
+        spmv_note = f"the plain {type(prob.A).__name__} matvec"
+    else:
+        spmv_note = "the K9/K10 DIA kernel" if isinstance(prob.A, DiaMatrix) else "the K11/K12 ELL gather kernel"
     ts.add(
-        f"(DDOT/WAXPBY/SPARSEMV are slope-timed micro-benchmarks; SPARSEMV is the "
-        f"K1 stencil kernel; Total timed backend={backend_used}{fused_note})",
+        f"(DDOT/WAXPBY/SPARSEMV are slope-timed micro-benchmarks; SPARSEMV is "
+        f"{spmv_note}; Total timed backend={backend_used}{fused_note})",
         "",
     )
 

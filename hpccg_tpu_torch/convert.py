@@ -1,9 +1,10 @@
 """Carry the JAX package's state across, as numpy arrays.
 
 The system has no weights: its state is the problem (b, x0, xexact on the
-grid) and the CG result. The JAX package's arrays, handed over with
-``np.asarray``, become the port's tensors bit for bit, so both packages can
-solve the very same system; the ``*_to_numpy`` functions go back.
+grid, or an explicit ELL / DIA matrix with them) and the CG result. The JAX
+package's arrays, handed over with ``np.asarray``, become the port's tensors
+bit for bit, so both packages can solve the very same system; the
+``*_to_numpy`` functions go back.
 
 bfloat16: numpy has no bf16 of its own; JAX hands over ``ml_dtypes``'
 bfloat16. Such an array is widened exactly to float32 and narrowed again
@@ -19,7 +20,7 @@ import torch
 
 from hpccg_tpu_torch.config import Stencil
 from hpccg_tpu_torch.models.stencil import Problem
-from hpccg_tpu_torch.operators import StencilOperator
+from hpccg_tpu_torch.operators import DiaMatrix, EllMatrix, StencilOperator
 from hpccg_tpu_torch.solver import CGResult
 
 
@@ -88,3 +89,25 @@ def result_from_numpy(x, niters, normr, rtrans, trace, *, device) -> CGResult:
 
 def result_to_numpy(res: CGResult) -> dict:
     return {name: _numpy(getattr(res, name)) for name in ("x", "niters", "normr", "rtrans", "trace")}
+
+
+def ell_from_numpy(vals, cols, valid, start_row=0, total_nrow=None, *, device) -> EllMatrix:
+    """An EllMatrix on ``device`` from the arrays of a JAX ``EllMatrix``."""
+    return EllMatrix(vals=_tensor(vals, device), cols=_tensor(cols, device, torch.int32),
+                     valid=_tensor(valid, device, torch.bool), start_row=int(start_row),
+                     total_nrow=None if total_nrow is None else int(total_nrow))
+
+
+def ell_to_numpy(A: EllMatrix) -> dict:
+    return {"vals": _numpy(A.vals), "cols": _numpy(A.cols), "valid": _numpy(A.valid),
+            "start_row": A.start_row, "total_nrow": A.total_nrow}
+
+
+def dia_from_numpy(data, offsets, total_nrow=None, *, device) -> DiaMatrix:
+    """A DiaMatrix on ``device`` from the arrays of a JAX ``DiaMatrix``."""
+    return DiaMatrix(data=_tensor(data, device), offsets=tuple(int(o) for o in offsets),
+                     total_nrow=None if total_nrow is None else int(total_nrow))
+
+
+def dia_to_numpy(A: DiaMatrix) -> dict:
+    return {"data": _numpy(A.data), "offsets": A.offsets, "total_nrow": A.total_nrow}

@@ -1,0 +1,90 @@
+// DIA SpMV for Hopper (sm_90a): K9 (float) and K10 (double).
+//
+// Replaces hpccg_tpu/ops/pallas/dia_kernel.py:_kernel (K9) and :_kernel_dd
+// (K10): y[i] = sum_d data[d, i] * x[i + off_d] for a banded explicit matrix.
+// The TPU kernel streams (8 diagonal x 256x128) blocks of the data, keeps a
+// bandwidth-padded x in VMEM and scalar-prefetches the offsets; K10 carries
+// f64 as (hi, lo) f32 pairs because Mosaic has no f64. Hopper has a gather
+// and native f64, so K10 is this kernel's double instance.
+//
+// What bounds it on the card: memory bandwidth. Each row reads ndiag data
+// values (diagonal-major, so a warp's reads coalesce), x at ndiag shifted
+// positions (coalesced too, and mostly L1/L2 hits: neighbouring diagonals
+// read overlapping windows of x), and writes y: ndiag*n*s + 2n*s bytes per
+// SpMV. What the design does about it: one thread per row in a grid-stride
+// loop (64-bit row and offset arithmetic), no padding of x or the data
+// (a diagonal's slot is read only where row + off lies in [0, n): DIA
+// stores zeros outside each diagonal, and x is never read out of bounds),
+// and the offsets (<= 4096 int32) staged through shared memory in chunks.
+//
+// The sum runs in offset order with every product and sum rounded on its
+// own (no FMA contraction), the order and the roundings of the plain torch
+// version (one sliced multiply-add per diagonal), so kernel and plain agree
+// bit for bit. No atomics: two launches are bit-identical.
+
+namespace {
+
+constexpr int NT = 256;
+constexpr int OFF_CHUNK = 1024;         // offsets staged per pass: 4 KB of shared memory
+constexpr long long MAX_BLOCKS = 65536;  // grid-stride beyond 16M rows
+
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+
+template <typename T>
+__global__ void __launch_bounds__(NT)
+    dia_spmv_kernel(const T* __restrict__ data, const int* __restrict__ offsets, int ndiag,
+                    const T* __restrict__ x, T* __restrict__ y, long long n) {
+  __shared__ int s_off[OFF_CHUNK];
+  const long long stride = (long long)gridDim.x * NT;
+  // the loop bound is the same for every thread of a block, so all of them
+  // reach the barriers
+  for (long long base = (long long)blockIdx.x * NT; base < n; base += stride) {
+    const long long row = base + threadIdx.x;
+    const bool in = row < n;
+    T acc = T(0);
+    for (int c0 = 0; c0 < ndiag; c0 += OFF_CHUNK) {
+      const int m = min(OFF_CHUNK, ndiag - c0);
+      __syncthreads();  // the previous chunk's readers are done
+      for (int j = threadIdx.x; j < m; j += NT) s_off[j] = offsets[c0 + j];
+      __syncthreads();
+      if (in) {
+        const T* d = data + (long long)c0 * n + row;
+        for (int j = 0; j < m; ++j) {
+          const long long col = row + (long long)s_off[j];
+          if (col >= 0 && col < n) acc = add_rn(acc, mul_rn(d[(long long)j * n], __ldg(x + col)));
+        }
+      }
+    }
+    if (in) y[row] = acc;
+  }
+}
+
+template <typename T>
+int launch_dia(const T* data, const int* offsets, int ndiag, const T* x, T* y, long long n,
+               void* stream) {
+  if (n < 1 || ndiag < 0) return (int)cudaErrorInvalidValue;
+  long long blocks = (n + NT - 1) / NT;
+  if (blocks > MAX_BLOCKS) blocks = MAX_BLOCKS;
+  dia_spmv_kernel<T><<<(unsigned)blocks, NT, 0, (cudaStream_t)stream>>>(data, offsets, ndiag, x, y, n);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// data: (ndiag, n) diagonal-major; offsets: (ndiag,) int32, increasing.
+int hpccg_dia_f32(const float* data, const int* offsets, int ndiag, const float* x, float* y,
+                  long long n, void* stream) {
+  return launch_dia<float>(data, offsets, ndiag, x, y, n, stream);
+}
+
+int hpccg_dia_f64(const double* data, const int* offsets, int ndiag, const double* x, double* y,
+                  long long n, void* stream) {
+  return launch_dia<double>(data, offsets, ndiag, x, y, n, stream);
+}
+
+}  // extern "C"

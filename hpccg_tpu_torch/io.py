@@ -1,0 +1,174 @@
+"""Matrix IO: the reference's "HPC row" text format
+(read_HPC_row.cpp:217-373; ``hpccg_tpu.io``).
+
+Token stream: ``total_nrow total_nnz``, then the nnz-per-row counts, then
+(val, ind) pairs row-major, then (x, b, xexact) triples. Only the tokens
+matter, not the line breaks. Reading and writing are vectorised NumPy: one
+``bytes.split`` pass in, and formatted arrays joined in one pass out.
+
+The structure analysis (``reorder.auto_structure``, ``to_dia``) runs on host
+arrays: the readers hold the matrix in CPU tensors over numpy's memory and
+move only the representation that solves to the device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from hpccg_tpu_torch.models.stencil import Problem
+from hpccg_tpu_torch.operators import DiaMatrix, EllMatrix, StencilOperator, unique_offsets
+from hpccg_tpu_torch.reorder import STORED_ZEROS_REASON, StructureReport, auto_structure, dia_fits
+
+
+def _tokenize(path: str) -> np.ndarray:
+    """All whitespace-separated numeric tokens, as float64."""
+    with open(path, "rb") as f:
+        toks = f.read().split()
+    if not toks:
+        return np.zeros((0,), np.float64)
+    return np.array(toks, dtype=np.float64)
+
+
+def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    return torch.empty((), dtype=dtype).numpy().dtype
+
+
+def read_hpc_row(path: str, *, dtype=torch.float64, to_dia: bool = True,
+                 device="cpu") -> Tuple[Problem, torch.Tensor]:
+    """Load an HPC-row file into an explicit-matrix Problem on ``device``.
+
+    Returns (problem, x_file): the file carries an initial guess x beside b
+    and xexact (read_HPC_row.cpp:331-347); problem.x0 is that guess. With
+    ``to_dia`` a matrix of at most 128 distinct diagonals (every stencil
+    file) becomes a DiaMatrix; any other stays in padded ELL. float32 and
+    float64 only (numpy has no bfloat16)."""
+    toks = _tokenize(path)
+    if toks.size < 2:
+        raise ValueError(f"{path}: not an HPC-row file (fewer than 2 tokens)")
+    nrow, nnz = int(toks[0]), int(toks[1])
+    counts = toks[2 : 2 + nrow].astype(np.int64)
+    if counts.size < nrow or counts.sum() != nnz:
+        raise ValueError(f"{path}: header claims nrow={nrow} nnz={nnz}, "
+                         f"counts sum to {counts.sum() if counts.size == nrow else 'short file'}")
+    pos = 2 + nrow
+    pairs = toks[pos : pos + 2 * nnz]
+    if pairs.size < 2 * nnz:
+        raise ValueError(f"{path}: truncated (val, ind) section")
+    pos += 2 * nnz
+    tail = toks[pos : pos + 3 * nrow]
+    if tail.size < 3 * nrow:
+        raise ValueError(f"{path}: truncated x/b/xexact section")
+
+    ndt = _numpy_dtype(dtype)
+    width = int(counts.max()) if nrow else 0
+    vals = np.zeros((nrow, width), ndt)
+    cols = np.zeros((nrow, width), np.int32)
+    valid = np.zeros((nrow, width), bool)
+    row_ids = np.repeat(np.arange(nrow), counts)
+    slot_ids = np.arange(nnz) - np.repeat(np.cumsum(counts) - counts, counts)
+    vals[row_ids, slot_ids] = pairs[0::2]
+    cols[row_ids, slot_ids] = pairs[1::2].astype(np.int64)
+    valid[row_ids, slot_ids] = True
+    A = EllMatrix(vals=torch.from_numpy(vals), cols=torch.from_numpy(cols), valid=torch.from_numpy(valid),
+                  start_row=0, total_nrow=nrow)
+    dia = A.to_dia() if to_dia else None
+    A = A if dia is None else dia
+    x, b, xexact = (torch.from_numpy(tail[k::3].astype(ndt)).to(device) for k in range(3))
+    prob = Problem(A=A.to(device), b=b, x0=x, xexact=xexact, total_nrow=nrow, total_nnz_model=nnz,
+                   total_nnz_exact=nnz)
+    return prob, prob.x0
+
+
+def read_hpc_row_structured(path: str, *, dtype=torch.float64, max_diags: int = 4096,
+                            max_inflation: float = 64.0, reorder: bool = True, device="cpu"):
+    """Load an HPC-row file and pick the representation it solves in
+    (``reorder.auto_structure``).
+
+    Returns (problem, perm, report): ``problem`` is in the *solve* basis (b,
+    x0 and xexact permuted with A) on ``device``; ``perm`` is None when the
+    file's order is kept, else ``x_file[perm[i]] = x_solve[i]``
+    (:func:`unpermute`). ``reorder=False`` (the CLI's ``--no-reorder``)
+    disables RCM but keeps the direct DIA conversion under the same budgets.
+    """
+    prob, _ = read_hpc_row(path, dtype=dtype, to_dia=False)
+    A = prob.A
+    max_storage = 8 << 30
+    if reorder:
+        op, perm, report = auto_structure(A, max_diags=max_diags, max_inflation=max_inflation,
+                                          max_storage_bytes=max_storage)
+    else:
+        perm = None
+        rows, cols, vals = A.to_coo()
+        ndiag = int(unique_offsets(cols.astype(np.int64) - rows).size)
+        n = A.local_nrow
+        zeros = bool(np.any(vals == 0))
+        fits = dia_fits(ndiag, n, A.nnz, A.vals.element_size(), max_diags=max_diags,
+                        max_inflation=max_inflation, max_storage_bytes=max_storage)
+        if fits and not zeros:
+            op = A.to_dia(max_diags=max_diags)
+            report = StructureReport("dia", ndiag, 0, None, None,
+                                     f"banded as loaded: {ndiag} diagonals (reorder off)")
+        else:
+            op = A
+            reason = ("reorder disabled; " + STORED_ZEROS_REASON if zeros
+                      else f"reorder disabled; not directly banded ({ndiag} diagonals) — ELL gather")
+            report = StructureReport("ell", None, 0, None, None, reason)
+    vecs = {name: getattr(prob, name) for name in ("b", "x0", "xexact")}
+    if perm is not None:
+        index = torch.from_numpy(np.ascontiguousarray(perm, dtype=np.int64))
+        vecs = {name: v[index] for name, v in vecs.items()}
+    prob = dataclasses.replace(prob, A=op.to(device), **{name: v.to(device) for name, v in vecs.items()})
+    return prob, perm, report
+
+
+def unpermute(x, perm) -> np.ndarray:
+    """A solve-basis vector (tensor or array) in the file's row order."""
+    x = x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+    if perm is None:
+        return x
+    out = np.empty_like(x)
+    out[np.asarray(perm)] = x
+    return out
+
+
+def _floats(a) -> np.ndarray:
+    """Tokens of a float array: the shortest text that reads back as the
+    same float64 (float32 values are widened first, as ``%.17g`` of a
+    float32 does), so the written values read back exactly."""
+    return np.asarray(a, dtype=np.float64).astype(str)
+
+
+def _join_rows(tokens: np.ndarray, row_ends: np.ndarray) -> str:
+    """The tokens joined by spaces, with a newline after each index in
+    ``row_ends``."""
+    sep = np.full(tokens.shape, " ", dtype="<U1")
+    sep[row_ends] = "\n"
+    return "".join(np.char.add(tokens, sep).tolist())
+
+
+def write_hpc_row(path: str, prob: Problem, x: Optional[np.ndarray] = None) -> None:
+    """Write a Problem in the HPC-row format (the inverse of the reader): one
+    line of counts, one line of (val, ind) pairs per non-empty row, one
+    line of (x, b, xexact) per row. ``x`` defaults to zeros."""
+    A = prob.A
+    if isinstance(A, StencilOperator):
+        raise TypeError("write_hpc_row needs an explicit matrix; use generate_ell")
+    nrow = A.local_nrow
+    _, cols, vals = A.to_coo()
+    counts = A.nnz_per_row().cpu().numpy().astype(np.int64)
+    x = np.zeros(nrow) if x is None else (x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x))
+    b, xexact = (v.detach().cpu().numpy() for v in (prob.b, prob.xexact))
+    pairs = np.char.add(np.char.add(_floats(vals), " "), cols.astype(str))
+    triples = np.char.add(np.char.add(np.char.add(np.char.add(_floats(x), " "), _floats(b)), " "),
+                          _floats(xexact))
+    with open(path, "w") as f:
+        f.write(f"{nrow} {int(counts.sum())}\n")
+        f.write(" ".join(counts.astype(str).tolist()) + "\n")
+        if pairs.size:
+            f.write(_join_rows(pairs, np.cumsum(counts)[counts > 0] - 1))
+        if nrow:
+            f.write(_join_rows(triples, np.arange(nrow)))

@@ -1,5 +1,5 @@
 """Problem construction."""
 
-from hpccg_tpu_torch.models.stencil import Problem, generate_problem
+from hpccg_tpu_torch.models.stencil import Problem, generate_ell, generate_problem
 
-__all__ = ["Problem", "generate_problem"]
+__all__ = ["Problem", "generate_ell", "generate_problem"]

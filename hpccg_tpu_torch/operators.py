@@ -1,10 +1,16 @@
-"""The implicit stencil operator, in plain torch (``hpccg_tpu.operators``).
+"""Operators in plain torch (``hpccg_tpu.operators``).
 
-For the generated problem every diagonal is 27 and every off-diagonal -1
-(generate_matrix.cpp:268-274), so A @ x = 28*x - S(x), where S is the
-boundary-clipped neighbour sum including self. The matrix never
-materialises. This plain torch matvec is the port's own reference: the CPU
-path, and what the CUDA stencil kernel is held against on the card.
+- :class:`StencilOperator`, the implicit A of the generated problem. Every
+  diagonal is 27 and every off-diagonal -1 (generate_matrix.cpp:268-274), so
+  A @ x = 28*x - S(x), where S is the boundary-clipped neighbour sum
+  including self. The matrix never materialises.
+- :class:`EllMatrix`, the general explicit matrix in padded ELL, and
+  :class:`DiaMatrix`, diagonal storage for banded matrices (the reference's
+  CSR, HPC_Sparse_Matrix.hpp:56-66, in fixed-width layouts).
+
+Each ``matvec`` here is the plain torch version: the CPU path, and what the
+CUDA kernels are held against on the card (K1 for the stencil,
+``ops/cuda/dia.py`` and ``ops/cuda/ell.py`` for DIA and ELL).
 
 Vectors are flat (n,) tensors ordered row-major over (iz, iy, ix), the
 reference's ``currow = iz*nx*ny + iy*nx + ix`` (generate_matrix.cpp:254), so
@@ -14,7 +20,9 @@ reference's ``currow = iz*nx*ny + iy*nx + ix`` (generate_matrix.cpp:254), so
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
+import numpy as np
 import torch
 
 from hpccg_tpu_torch.config import DIAG_VALUE, OFFDIAG_VALUE, Stencil
@@ -117,3 +125,244 @@ class StencilOperator:
         """The reference's approximate count: stencil_size * nrow
         (generate_matrix.cpp:223,226 uses 27*nrow regardless of boundary)."""
         return self.stencil.value * self.local_nrow
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """t as a host numpy array; bfloat16 (which numpy lacks) widened exactly
+    to float32."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _rows_of(nrow: int, width: int) -> np.ndarray:
+    return np.broadcast_to(np.arange(nrow, dtype=np.int64)[:, None], (nrow, width))
+
+
+def unique_offsets(offs: np.ndarray) -> np.ndarray:
+    """np.unique of an int64 array of (col - row) offsets, by counting: the
+    offsets lie within [-n, n], so a bincount over that range is O(nnz + n)
+    where a sort is O(nnz log nnz)."""
+    if offs.size == 0:
+        return np.zeros((0,), np.int64)
+    lo = int(offs.min())
+    return np.flatnonzero(np.bincount(offs - lo)) + lo
+
+
+# ---------------------------------------------------------------------------
+# EllMatrix -- the general explicit path
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class EllMatrix:
+    """Padded ELL: dense (nrow, width) vals / cols and a validity mask.
+
+    The reference's jagged CSR (HPC_Sparse_Matrix.hpp:63-66) in a fixed-width
+    layout: invalid slots carry val 0 and col 0, so the matvec needs no mask.
+    ``cols`` are *global* int32 column ids; ``start_row`` / ``total_nrow`` are
+    the partition metadata (HPC_Sparse_Matrix.hpp:56-62). The tensors may lie
+    on any device; the readers keep them on the CPU (numpy's memory) while
+    they analyse the structure.
+    """
+
+    vals: torch.Tensor  # (nrow, width) dtype
+    cols: torch.Tensor  # (nrow, width) int32, global ids, 0 where invalid
+    valid: torch.Tensor  # (nrow, width) bool
+    start_row: int = 0
+    total_nrow: Optional[int] = None
+
+    @property
+    def local_nrow(self) -> int:
+        return self.vals.shape[0]
+
+    @property
+    def width(self) -> int:
+        return self.vals.shape[1]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.vals.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.vals.device
+
+    @property
+    def nnz(self) -> int:
+        return int(self.valid.sum())
+
+    def nnz_per_row(self) -> torch.Tensor:
+        return self.valid.sum(dim=1, dtype=torch.int32)
+
+    def local_cols(self) -> torch.Tensor:
+        """Columns relative to this partition's row range."""
+        return self.cols - self.start_row
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """y = A @ x, x indexed by *global* column ids (it covers
+        [0, total_nrow)); invalid slots add 0 * x[0], as JAX's take does."""
+        gathered = x.index_select(0, self.cols.reshape(-1)).view(self.cols.shape)
+        return (self.vals * gathered).sum(dim=1)
+
+    def to(self, device) -> "EllMatrix":
+        return dataclasses.replace(self, vals=self.vals.to(device), cols=self.cols.to(device),
+                                   valid=self.valid.to(device))
+
+    def to_dense(self) -> torch.Tensor:
+        """Dense (local_nrow, total_nrow) materialisation, tests only;
+        duplicate (row, col) entries accumulate."""
+        n = self.total_nrow if self.total_nrow is not None else self.local_nrow
+        dense = torch.zeros((self.local_nrow, n), dtype=self.dtype, device=self.device)
+        rows = torch.arange(self.local_nrow, device=self.device)[:, None].expand(self.cols.shape)
+        return dense.index_put_((rows.reshape(-1), self.cols.reshape(-1).long()), self.vals.reshape(-1),
+                                accumulate=True)
+
+    def to_coo(self):
+        """(rows, cols, vals) numpy triplets of the valid entries, row-major,
+        entries within a row in storage order (the reference's CSR order,
+        generate_matrix.cpp:259-276); rows are global. bfloat16 values come
+        out as float32."""
+        valid = _host(self.valid)
+        rows = _rows_of(self.local_nrow, self.width)[valid]
+        cols = _host(self.cols)[valid]
+        vals = _host(self.vals)[valid]
+        return rows + self.start_row, cols, vals
+
+    def to_dia(self, max_diags: int = 128) -> Optional["DiaMatrix"]:
+        """Diagonal storage if the matrix has at most ``max_diags`` distinct
+        (col - row) offsets, else None. Also None for a row shard (the
+        offsets would wrap) and for a matrix that stores explicit zeros: DIA
+        treats them as structural, so a write round trip would lose them.
+        Built on the host; the result lies on this matrix's device."""
+        if self.start_row != 0:
+            return None
+        n = self.local_nrow
+        if self.total_nrow is not None and self.total_nrow != n:
+            return None
+        rows, cols, vals = self.to_coo()
+        if np.any(vals == 0):
+            return None
+        offs = cols.astype(np.int64) - rows
+        uniq = unique_offsets(offs)
+        if uniq.size > max_diags:
+            return None
+        didx = np.searchsorted(uniq, offs)
+        data = np.zeros((uniq.size, n), dtype=vals.dtype)
+        flat = didx * n + rows
+        if rows.size and np.bincount(flat).max() > 1:
+            np.add.at(data.reshape(-1), flat, vals)  # duplicates accumulate, as to_dense
+        else:
+            data.reshape(-1)[flat] = vals
+        return DiaMatrix(data=torch.from_numpy(data).to(self.device, self.dtype),
+                         offsets=tuple(int(o) for o in uniq), total_nrow=self.total_nrow or n)
+
+
+# ---------------------------------------------------------------------------
+# DiaMatrix -- banded explicit matrices, no gather
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class DiaMatrix:
+    """Diagonal storage: y[i] = sum_d data[d, i] * x[i + offsets[d]].
+
+    ``data[d, r] = A[r, r + offsets[d]]``, zero where r + offsets[d] falls
+    outside [0, n); ``offsets`` are static ints, strictly increasing. A
+    stencil matrix has 27 (or 7) diagonals.
+    """
+
+    data: torch.Tensor  # (ndiag, nrow)
+    offsets: tuple
+    total_nrow: Optional[int] = None
+
+    @property
+    def local_nrow(self) -> int:
+        return self.data.shape[1]
+
+    @property
+    def ndiag(self) -> int:
+        return self.data.shape[0]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.data.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    @property
+    def nnz(self) -> int:
+        return int((self.data != 0).sum())
+
+    def _span(self, off: int):
+        """Rows [lo, hi) on which diagonal ``off`` lies inside the matrix."""
+        n = self.local_nrow
+        return max(0, -off), min(n, n - off)
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """y = A @ x: one sliced multiply-add per diagonal, in offset order
+        (the order of the DIA kernel's sum)."""
+        y = torch.zeros((self.local_nrow,), dtype=torch.promote_types(self.dtype, x.dtype), device=x.device)
+        for d, off in enumerate(self.offsets):
+            lo, hi = self._span(off)
+            if hi > lo:
+                y[lo:hi] += self.data[d, lo:hi] * x[lo + off : hi + off]
+        return y
+
+    def to(self, device) -> "DiaMatrix":
+        return dataclasses.replace(self, data=self.data.to(device))
+
+    def to_coo(self):
+        """(rows, cols, vals) numpy triplets of the stored nonzeros,
+        row-major, within a row by column (= offset order); bfloat16 values
+        come out as float32."""
+        data = _host(self.data)
+        rs, cs, vs = [np.zeros((0,), np.int64)], [np.zeros((0,), np.int64)], [data[:0, 0]]
+        for d, off in enumerate(self.offsets):
+            lo, hi = self._span(off)
+            rows = np.arange(lo, max(lo, hi), dtype=np.int64)
+            v = data[d, rows]
+            keep = v != 0
+            rs.append(rows[keep])
+            cs.append(rows[keep] + off)
+            vs.append(v[keep])
+        rows, cols, vals = np.concatenate(rs), np.concatenate(cs), np.concatenate(vs)
+        order = np.lexsort((cols, rows))
+        return rows[order], cols[order], vals[order]
+
+    def nnz_per_row(self) -> torch.Tensor:
+        counts = torch.zeros((self.local_nrow,), dtype=torch.int32, device=self.device)
+        for d, off in enumerate(self.offsets):
+            lo, hi = self._span(off)
+            if hi > lo:
+                counts[lo:hi] += (self.data[d, lo:hi] != 0).to(torch.int32)
+        return counts
+
+    def to_ell(self) -> EllMatrix:
+        """Padded-ELL view of the stored nonzeros, on this matrix's device."""
+        rows, cols, vals = self.to_coo()
+        n = self.local_nrow
+        counts = np.bincount(rows, minlength=n)
+        width = max(int(counts.max()) if n else 0, 1)
+        ev = np.zeros((n, width), vals.dtype)
+        ec = np.zeros((n, width), np.int32)
+        em = np.zeros((n, width), bool)
+        starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        slot = np.arange(len(rows)) - starts[rows]
+        ev[rows, slot] = vals
+        ec[rows, slot] = cols
+        em[rows, slot] = True
+        return EllMatrix(vals=torch.from_numpy(ev).to(self.dtype), cols=torch.from_numpy(ec),
+                         valid=torch.from_numpy(em), start_row=0, total_nrow=self.total_nrow or n).to(self.device)
+
+    def to_dense(self) -> torch.Tensor:
+        """Dense materialisation, tests only."""
+        n = self.local_nrow
+        dense = torch.zeros((n, n), dtype=self.dtype, device=self.device)
+        for d, off in enumerate(self.offsets):
+            lo, hi = self._span(off)
+            if hi > lo:
+                r = torch.arange(lo, hi, device=self.device)
+                dense[r, r + off] = self.data[d, lo:hi]
+        return dense

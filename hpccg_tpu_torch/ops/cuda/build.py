@@ -53,6 +53,10 @@ _SIGNATURES = {
     "hpccg_wholesolve_f32": [_P] * 8 + [_I] + [_P] * 3 + [_I] * 5 + [_P],
     "hpccg_wholesolve_f64": [_P] * 8 + [_I] + [_P] * 3 + [_I] * 5 + [_P],
     "hpccg_wholesolve_bf16": [_P] * 8 + [_I] + [_P] * 3 + [_I] * 5 + [_P],
+    "hpccg_dia_f32": [_P, _P, _I, _P, _P, _LL, _P],
+    "hpccg_dia_f64": [_P, _P, _I, _P, _P, _LL, _P],
+    "hpccg_ell_f32": [_P, _P, _I, _P, _P, _LL, _P],
+    "hpccg_ell_f64": [_P, _P, _I, _P, _P, _LL, _P],
 }
 
 

@@ -1,0 +1,87 @@
+"""DIA SpMV kernels K9 (float32) and K10 (float64) (``csrc/dia.cu``): the
+wrapper, its plain version and its launch counter.
+
+K9 replaces ``hpccg_tpu/ops/pallas/dia_kernel.py:_kernel``; K10, the same
+kernel's float64 instance, replaces ``:_kernel_dd``, which carries f64 as
+(hi, lo) float32 pairs because the TPU has no f64.
+
+The kernel reads the :class:`DiaMatrix` as it is: ``data`` (ndiag, n) is
+already diagonal-major, so the only layout built for it is the int32 offsets
+on the card (:func:`prepare_dia`, once per matrix). ``spmv_dia`` runs its
+plain version only for tensors on the CPU; for CUDA tensors it launches the
+kernel (on the current stream, without synchronising) or raises, and counts
+its launches per instance: ``spmv_dia.launches_f32`` (K9) and
+``spmv_dia.launches_f64`` (K10).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from hpccg_tpu_torch.operators import DiaMatrix
+from hpccg_tpu_torch.ops.cuda import check_tensors
+from hpccg_tpu_torch.ops.cuda.build import check_launch, load_library
+
+MAX_DIAGS = 4096  # the structure chooser's cap; the kernel stages offsets in 1024-chunks
+
+
+@dataclasses.dataclass(frozen=True)
+class PreparedDia:
+    """A DiaMatrix with its offsets as an int32 tensor on its device (the
+    analog of the JAX package's ``prepare_dia``, without the block padding
+    the TPU kernel needs)."""
+
+    A: DiaMatrix
+    offsets: torch.Tensor  # (ndiag,) int32
+
+    def matvec(self, x: torch.Tensor, *, out=None) -> torch.Tensor:
+        return spmv_dia(self, x, out=out)
+
+
+def prepare_dia(A: DiaMatrix) -> PreparedDia:
+    offs = list(A.offsets)
+    if len(offs) != A.ndiag or any(b <= a for a, b in zip(offs, offs[1:])):
+        raise ValueError("DiaMatrix offsets must be strictly increasing, one per row of data")
+    if A.ndiag > MAX_DIAGS:
+        raise ValueError(f"{A.ndiag} diagonals: the DIA kernel takes at most {MAX_DIAGS}")
+    n = A.local_nrow
+    if offs and (offs[0] <= -n or offs[-1] >= n):
+        raise ValueError(f"offsets {offs[0]}..{offs[-1]} lie outside an {n}-row matrix")
+    return PreparedDia(A=A, offsets=torch.tensor(offs, dtype=torch.int32, device=A.device))
+
+
+def spmv_dia_plain(P: PreparedDia, x: torch.Tensor, *, out=None) -> torch.Tensor:
+    """Plain torch K9/K10: one sliced multiply-add per diagonal
+    (``DiaMatrix.matvec``)."""
+    y = P.A.matvec(x)
+    return y if out is None else out.copy_(y)
+
+
+def spmv_dia(P: PreparedDia, x: torch.Tensor, *, out=None) -> torch.Tensor:
+    """K9 (float32) / K10 (float64): y = A x (CUDA kernel; plain on the CPU)."""
+    A = P.A
+    n = A.local_nrow
+    check_tensors(x, x=(x, (n,), None), data=(A.data, (A.ndiag, n), None),
+                  offsets=(P.offsets, (A.ndiag,), torch.int32), out=(out, (n,), None))
+    if x.device.type == "cpu":
+        return spmv_dia_plain(P, x, out=out)
+    if out is None:
+        out = torch.empty_like(x)
+    if out.data_ptr() == x.data_ptr():
+        raise ValueError("out must not alias x: rows read x at shifted positions")
+    lib = load_library()
+    fn = lib.hpccg_dia_f32 if x.dtype == torch.float32 else lib.hpccg_dia_f64
+    err = fn(A.data.data_ptr(), P.offsets.data_ptr(), A.ndiag, x.data_ptr(), out.data_ptr(), n,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    check_launch(err, "DIA kernel")
+    if x.dtype == torch.float32:
+        spmv_dia.launches_f32 += 1
+    else:
+        spmv_dia.launches_f64 += 1
+    return out
+
+
+spmv_dia.launches_f32 = 0  # K9
+spmv_dia.launches_f64 = 0  # K10

@@ -50,16 +50,31 @@ so the other kernel backends refuse bf16.
 
 On the CPU the kernel backends run the kernels' plain versions. The
 per-iteration kernel backends compute the initial Ap with K1.
+
+Explicit matrices (:class:`EllMatrix`, :class:`DiaMatrix`; JAX
+``solver.py:394-423``, ``:500-528``, ``:724-739``): ``make_cg`` builds the
+kernel's layout once (``prepare_dia`` / ``prepare_ell``) and runs
+``cg_solve`` with the matrix's own kernel as the matvec (K9/K10 for DIA,
+K11/K12 for ELL) and the CUDA finalize step; the dots and axpys stay torch,
+as they stay XLA in JAX. ``auto``, ``ell`` and ``dia`` all run the matrix's
+own kernel (``ell`` on a DIA matrix runs DIA: JAX's native dispatch);
+``stencil`` runs the plain versions with ``cg_finalize_plain``, the plain
+baseline on the card; the stencil-only names warn and run ``auto``. K9/K11
+have no bf16 instance yet: bfloat16 runs the plain path on the CPU, and on
+CUDA only on ``stencil``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Callable, Optional
 
 import torch
 
-from hpccg_tpu_torch.operators import StencilOperator
+from hpccg_tpu_torch.operators import DiaMatrix, EllMatrix, StencilOperator
+from hpccg_tpu_torch.ops.cuda.dia import prepare_dia
+from hpccg_tpu_torch.ops.cuda.ell import prepare_ell
 from hpccg_tpu_torch.ops.cuda.fused_cg import (
     IC_K,
     SC_NORMR,
@@ -89,6 +104,9 @@ BACKENDS = ("auto", "stencil", "pallas", "pallas_fused", "pallas_dd", "pallas_v1
 WHOLE_SOLVE_BACKENDS = ("megakernel", "streamkernel")  # one launch per solve
 # the backends that take bfloat16 state
 BF16_BACKENDS = ("stencil", *WHOLE_SOLVE_BACKENDS)
+# what an explicit matrix (EllMatrix, DiaMatrix) dispatches on; other names
+# apply to the stencil operator only
+EXPLICIT_BACKENDS = ("auto", "stencil", "ell", "dia")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -221,8 +239,36 @@ def _check_dtype(backend: str, dtype) -> None:
                          f"{', '.join(BF16_BACKENDS)}")
 
 
+def explicit_kernel(A) -> Callable:
+    """The SpMV kernel of an explicit matrix, its layout built once here:
+    ``fn(x, *, out=None) -> A x`` on K9/K10 for a DiaMatrix and K11/K12 for
+    an EllMatrix (the plain versions on the CPU)."""
+    return (prepare_dia(A) if isinstance(A, DiaMatrix) else prepare_ell(A)).matvec
+
+
+def _make_cg_explicit(A, backend: str, **kw) -> Callable[[torch.Tensor, torch.Tensor], CGResult]:
+    """make_cg for an EllMatrix or DiaMatrix; ``kw`` are cg_solve's
+    max_iter, tolerance and check_every."""
+    if backend not in BACKENDS + EXPLICIT_BACKENDS:
+        raise ValueError(f"unknown backend {backend!r} (choose from {BACKENDS + EXPLICIT_BACKENDS[2:]})")
+    if backend not in EXPLICIT_BACKENDS:
+        warnings.warn(f"backend={backend!r} applies to stencil operators only; {type(A).__name__} uses its "
+                      "native matvec dispatch", stacklevel=3)
+        backend = "auto"
+    n = A.local_nrow
+    if (A.total_nrow or n) != n or getattr(A, "start_row", 0) != 0:
+        raise ValueError("make_cg needs the assembled square matrix, not a row shard")
+    if A.dtype == torch.bfloat16 and backend != "stencil" and A.device.type == "cuda":
+        raise ValueError(f"backend {backend!r} has no bfloat16 kernels for {type(A).__name__} yet; bfloat16 "
+                         "state runs on stencil")
+    if backend == "stencil" or A.dtype == torch.bfloat16:
+        return lambda b, x0: cg_solve(A.matvec, b, x0, finalize=cg_finalize_plain, **kw)
+    matvec = explicit_kernel(A)
+    return lambda b, x0: cg_solve(matvec, b, x0, **kw)
+
+
 def make_cg(
-    A: StencilOperator,
+    A,
     *,
     max_iter: Optional[int] = None,
     tolerance: Optional[float] = None,
@@ -230,7 +276,8 @@ def make_cg(
     config=None,
     check_every: Optional[int] = None,
 ) -> Callable[[torch.Tensor, torch.Tensor], CGResult]:
-    """Build a solver fn(b, x0) -> CGResult for the stencil operator A.
+    """Build a solver fn(b, x0) -> CGResult for A: a StencilOperator, or an
+    explicit EllMatrix / DiaMatrix (see the module docstring).
 
     Solve parameters come from ``max_iter``/``tolerance`` or a
     :class:`SolverConfig` passed as ``config`` (explicit keywords win; with
@@ -243,12 +290,13 @@ def make_cg(
     """
     from hpccg_tpu_torch.config import SolverConfig
 
-    if not isinstance(A, StencilOperator):
-        raise TypeError(f"make_cg takes a StencilOperator, got {type(A).__name__} "
-                        "(explicit matrices are not ported yet)")
     base = config if config is not None else SolverConfig()
     max_iter = base.max_iter if max_iter is None else max_iter
     tolerance = base.tolerance if tolerance is None else tolerance
+    if isinstance(A, (EllMatrix, DiaMatrix)):
+        return _make_cg_explicit(A, backend, max_iter=max_iter, tolerance=tolerance, check_every=check_every)
+    if not isinstance(A, StencilOperator):
+        raise TypeError(f"make_cg takes a StencilOperator, EllMatrix or DiaMatrix, got {type(A).__name__}")
     resolve_backend(backend, "cpu")  # reject unknown names now
     _check_dtype(backend, A.dtype)
     g = A.grid

@@ -70,7 +70,8 @@ def test_backends_and_kernel_bench(backend):
 
 @pytest.mark.parametrize("extra", [
     ["--backend", "ell"], ["--mesh", "2"], ["--method", "cg1"], ["--method", "pipecg"],
-    ["--refine", "2"], ["--backend", "dia"], ["--backend", "collective"],
+    ["--refine", "2"], ["--backend", "dia"], ["--backend", "collective"], ["--stream-load"],
+    ["--dump-matlab", "mat"],
 ])
 def test_not_yet_ported_flags_exit_2(extra, capsys):
     assert main(["4", "4", "4", "--device", "cpu"] + extra) == 2
@@ -104,8 +105,9 @@ def test_pallas_dd_refuses_float32(capsys):
 
 
 def test_file_mode_exits_2(capsys):
+    """File mode is ported; a file it cannot read exits 2 and says why."""
     assert main(["matrix.dat", "--device", "cpu"]) == 2
-    assert "file mode is not yet ported" in capsys.readouterr().err
+    assert "cannot read matrix.dat" in capsys.readouterr().err
 
 
 def test_cuda_device_without_gpu_says_pass_cpu(monkeypatch):

@@ -18,6 +18,8 @@ elements), one launch per solve, and two solves bit-identical. The bf16
 limits are about twice the largest readings on an H100 (chip_smoke.py).
 """
 
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -197,3 +199,112 @@ def test_whole_solve_and_dd_backends_match_stencil(cuda_device, backend):
     head = ref.trace > 1e-11 * ref.trace[0]
     torch.testing.assert_close(res.trace[head], ref.trace[head], rtol=1e-10, atol=0)
     torch.testing.assert_close(res.x, ref.x, rtol=1e-12, atol=0)
+
+
+# ------------------------------------------------- explicit matrices, K9-K12
+
+from hpccg_tpu_torch.models.stencil import generate_ell  # noqa: E402
+from hpccg_tpu_torch.operators import DiaMatrix  # noqa: E402
+from hpccg_tpu_torch.ops.cuda import dia as cdia  # noqa: E402
+from hpccg_tpu_torch.ops.cuda import ell as cell  # noqa: E402
+from hpccg_tpu_torch.reorder import permute_ell  # noqa: E402
+
+
+def _launches(wrapper) -> int:
+    return wrapper.launches_f32 + wrapper.launches_f64
+
+
+def _random_band(n, ndiag, span, dtype, device, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    offs = sorted({0, *torch.randint(-span, span + 1, (ndiag,), generator=gen).tolist()})
+    data = torch.randn((len(offs), n), generator=gen, dtype=dtype)
+    for d, off in enumerate(offs):  # zeros outside each diagonal
+        data[d, : max(0, -off)] = 0
+        data[d, min(n, n - off):] = 0
+    return DiaMatrix(data=data.to(device), offsets=tuple(offs), total_nrow=n)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", ["stencil", "band", "tiny"])
+def test_dia_kernel_matches_plain(cuda_device, case, dtype):
+    """K9/K10 against the plain version: the same sums in the same order,
+    each product and sum rounded on its own, so bit for bit; two launches
+    bit-identical; offsets past the 1024-offset shared-memory chunk."""
+    if case == "stencil":
+        D = generate_ell(ProblemConfig(33, 17, 9, dtype=dtype), cuda_device).A.to_dia()
+    elif case == "band":
+        D = _random_band(5003, 1500, 3000, dtype, cuda_device)
+        assert D.ndiag > 1024
+    else:
+        D = _random_band(3, 2, 2, dtype, cuda_device)
+    P = cdia.prepare_dia(D)
+    x = torch.randn(D.local_nrow, dtype=dtype, device=cuda_device)
+    before = _launches(cdia.spmv_dia)
+    y, again = cdia.spmv_dia(P, x), cdia.spmv_dia(P, x)
+    torch.cuda.synchronize()
+    assert _launches(cdia.spmv_dia) == before + 2
+    assert torch.equal(y, cdia.spmv_dia_plain(P, x)) and torch.equal(y, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", ["stencil", "permuted", "skewed"])
+def test_ell_kernel_matches_plain(cuda_device, case, dtype):
+    """K11/K12 against the plain version: within 1e-13 / 1e-5 of max|y|
+    (the plain version sums the slots in another order); two launches
+    bit-identical."""
+    A = generate_ell(ProblemConfig(12, 10, 9, dtype=dtype), "cpu").A
+    if case == "permuted":
+        A = permute_ell(A, torch.randperm(A.local_nrow, generator=torch.Generator().manual_seed(1)).numpy())
+    elif case == "skewed":  # one row of 240 slots
+        vals, cols, valid = (torch.zeros((A.local_nrow, 240), dtype=t) for t in (dtype, torch.int32, torch.bool))
+        vals[:, :27], cols[:, :27], valid[:, :27] = A.vals, A.cols, A.valid
+        vals[5], cols[5], valid[5] = 0.01, torch.arange(240, dtype=torch.int32) * 4, True
+        A = dataclasses.replace(A, vals=vals, cols=cols, valid=valid)
+    S = cell.prepare_ell(A.to(cuda_device))
+    x = torch.randn(A.local_nrow, dtype=dtype, device=cuda_device)
+    before = _launches(cell.spmv_ell)
+    y, again = cell.spmv_ell(S, x), cell.spmv_ell(S, x)
+    torch.cuda.synchronize()
+    assert _launches(cell.spmv_ell) == before + 2
+    _vec(y, cell.spmv_ell_plain(S, x))
+    assert torch.equal(y, again)
+
+
+def test_sparse_wrappers_refuse_bad_input(cuda_device):
+    A = generate_ell(ProblemConfig(6, 5, 4), cuda_device).A
+    S, P = cell.prepare_ell(A), cdia.prepare_dia(A.to_dia())
+    x = torch.randn(A.local_nrow, dtype=torch.float64, device=cuda_device)
+    for fn, layout in ((cell.spmv_ell, S), (cdia.spmv_dia, P)):
+        with pytest.raises(ValueError):
+            fn(layout, x, out=x)  # out aliases x
+        with pytest.raises(TypeError):
+            fn(layout, x.float())
+        with pytest.raises(ValueError):
+            fn(layout, x[:-1])
+    bad = dataclasses.replace(A, cols=A.cols.clone().fill_(A.local_nrow))
+    with pytest.raises(ValueError, match="outside"):
+        cell.prepare_ell(bad)
+
+
+@pytest.mark.parametrize("fmt", ["ell", "dia"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_explicit_solve_runs_its_kernel(cuda_device, fmt, dtype):
+    """make_cg on an explicit matrix launches its kernel once per matvec and
+    matches the plain (`stencil`) solve; bf16 is refused on the card."""
+    prob = generate_ell(ProblemConfig(16, 12, 10, dtype=dtype), cuda_device)
+    A = prob.A if fmt == "ell" else prob.A.to_dia()
+    wrapper = cell.spmv_ell if fmt == "ell" else cdia.spmv_dia
+    before = _launches(wrapper)
+    res = make_cg(A, max_iter=40, tolerance=0.0)(prob.b, prob.x0)
+    torch.cuda.synchronize()
+    assert _launches(wrapper) - before >= 40
+    before = _launches(wrapper)
+    ref = make_cg(A, max_iter=40, tolerance=0.0, backend="stencil")(prob.b, prob.x0)
+    torch.cuda.synchronize()
+    assert _launches(wrapper) == before and int(res.niters) == int(ref.niters) == 39
+    rtol, floor = {torch.float64: (1e-10, 1e-11), torch.float32: (1e-4, 1e-5)}[dtype]
+    head = ref.trace > floor * ref.trace[0]
+    torch.testing.assert_close(res.trace[head], ref.trace[head], rtol=rtol, atol=0)
+    bf16 = generate_ell(ProblemConfig(6, 5, 4, dtype=torch.bfloat16), cuda_device).A
+    with pytest.raises(ValueError, match="bfloat16"):
+        make_cg(bf16 if fmt == "ell" else bf16.to_dia())
