@@ -20,7 +20,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    what K13/K14 compute) against theirs, float32 and float64, on the
    stencil at 100^3 and 128^3, a 1000-diagonal band, the permuted 64^3
    stencil as loaded and after RCM, a random wide scatter and a skewed
-   matrix (phase_sparse_kernels);
+   matrix (phase_sparse_kernels); then the collective whole solves K15 (cg,
+   cg1) and K16 (pipecg) against theirs with 1, 2, 4, 6 and 8 ranks on the
+   one card, per rank 33x17x9 (27/7-point), 64x48x13 and 128x64x16 (more
+   work items than a rank's blocks at 6 and 8 ranks), float32 and float64
+   (phase_collective_kernels);
 4. main paths, each with every count set to 0 just before it and
    read just after: (a) slice 1, make_cg on the generated 27-point float32
    problem at 100^3 (max_iter 150) on auto (= pallas_fused), pallas and
@@ -36,22 +40,41 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    on the same grid (trace and x, max_iter 50); (d) the wide-scatter solves
    that K13/K14's launches are counted on: the randomly permuted 128^3
    float32 stencil through auto_structure (ell+rcm) and as loaded, x in
-   its order against the stencil solve's;
+   its order against the stencil solve's; (e) slice 4, make_distributed_cg
+   in float32 with every rank on the card, max_iter 150: 1 x 100^3, 64^3
+   per rank on 1, 2, 4 and 8 ranks (weak scaling) and 64x64x1024 on 8
+   ranks (strong scaling), each on collective (cg, cg1, pipecg: one launch
+   of K15/K16 per solve), pallas_fused and stencil, against the
+   single-device stencil solve of the same global grid;
 5. golden: the reference's 10^3 float64 run on pallas_fused, megakernel,
    streamkernel and pallas_dd, from an HPC-row file through the CLI (DIA)
-   and through make_cg on the EllMatrix (ELL);
+   and through make_cg on the EllMatrix (ELL), and as two 10x10x5 ranks on
+   collective (K15, cg);
 6. CLI: ``python -m hpccg_tpu_torch 100 100 100 --json`` with
    ``--dtype float32``, ``--backend megakernel --dtype float32`` and
-   ``--dtype bfloat16`` (auto = streamkernel); file mode on a 64^3 float64
-   file (dia) and its randomly permuted twin (ell+rcm; ell with
-   ``--no-reorder``), written by the port's writer, 149 iterations each;
+   ``--dtype bfloat16`` (auto = streamkernel); ``--method cg1``, ``--method
+   pipecg --rr-every 50`` (float32) and ``--refine 3`` (float64); file mode
+   on a 64^3 float64 file (dia) and its randomly permuted twin (ell+rcm;
+   ell with ``--no-reorder``), written by the port's writer, 149 iterations
+   each;
 7. timing: slope-timed us per CG iteration for each backend at 100^3 and
    256^3 float32 and the whole-solve backends at 256^3 bfloat16 (CUDA
    events, legs of 65 and 1025 iterations), the whole-solve kernels' device
    busy share at 100^3, and K1 against the plain matvec; at 128^3 float32
    and float64 the explicit solves (DIA, ELL, the ELL's plain version, the
    permuted matrix as loaded and after RCM; legs of 17 and 145) and
-   K9-K12 per launch with effective GB/s. Nothing is asserted on times.
+   K9-K12 per launch with effective GB/s; the collective backends at 1 x
+   100^3 (beside megakernel), 4 x 100^3 and 8 x 64^3 (beside distributed
+   pallas_fused; legs of 17 and 97; N ranks share one card, so these are no
+   scaling numbers) and K15/K16 against their plain versions. Nothing is
+   asserted on times.
+
+The kernels' JSON line gives, for every kernel: its launches on its main
+path, max|kernel - plain|, its device ms and its plain version's (per
+launch; per CG iteration for K5, K6, K15 and K16), the bound (the larger of
+the bytes it must move over 3.35 TB/s and its operations over the peak
+rate) and, where one PyTorch call computes the same function, that call's
+ms (conv3d for K1, a sparse CSR product for K9-K14; null elsewhere).
 
 Each phase prints its seconds. The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -92,12 +115,18 @@ KERNELS = {
                                                     "hpccg_tpu/ops/pallas/gell_stack.py:424"),
     "K14 wide scatter, dynamic window (ELL gather)": ("hpccg_tpu_torch/csrc/ell.cu",
                                                        "hpccg_tpu/ops/pallas/gell_dynwin.py:336"),
+    "K15 collective whole solve (cg, cg1)": ("hpccg_tpu_torch/csrc/collective.cu",
+                                             "hpccg_tpu/ops/pallas/collective_kernel.py:329"),
+    "K16 pipelined collective whole solve": ("hpccg_tpu_torch/csrc/collective.cu",
+                                             "hpccg_tpu/ops/pallas/collective_kernel.py:596"),
 }
 SLICE1 = list(KERNELS)[:5]  # the kernels of slice 1's main path
 SLICE2 = list(KERNELS)[5:8]
-SLICE3 = list(KERNELS)[8:]
+SLICE3 = list(KERNELS)[8:14]
+SLICE4 = list(KERNELS)[14:]
 K5, K6, K7 = SLICE2
 K9, K10, K11, K12, K13, K14 = SLICE3
+K15, K16 = SLICE4
 WIDE = [K13, K14]  # counted on the wide-scatter solve
 # tolerances, kernel vs plain on the same inputs: the sums run in another
 # order (the xy-sums associate like the plain version, but the compiler may
@@ -266,6 +295,7 @@ def phase_kernels() -> dict:
                         stats[K7]["max_abs_err"] = errs[K7]
                         _time_pair(stats[K7], lambda: st.spmv_stencil_pap_dd(op, u),
                                    lambda: st.spmv_stencil_pap_plain(op, u))
+                        _model(stats[K7], 2 * op.local_nrow * 8, 2 * op.nnz + 2 * op.local_nrow, 8)
                 if main:
                     for name in SLICE1:
                         stats[name]["max_abs_err"] = errs[name]
@@ -380,6 +410,8 @@ def phase_whole_solve_kernels() -> dict:
         t_plain1, t_k1, t_k2, t_plain2 = (per_iter(f) for f in (plain, kern, kern, plain))
         stats[name]["ms"] = (t_k1 + t_k2) / 2
         stats[name]["plain_ms"] = (t_plain1 + t_plain2) / 2
+        # one CG iteration: its state x, r, p read and written once
+        _model(stats[name], 6 * prob.total_nrow * 4, 2 * prob.A.nnz + 10 * prob.total_nrow, 4)
         say(f"[whole-solve] {name}: {stats[name]['ms'] * 1e3:.2f} us/iter vs plain "
             f"{stats[name]['plain_ms'] * 1e3:.2f} at 100^3 float32")
     return stats
@@ -458,6 +490,19 @@ def _time_kernels(st, fc, op, u, r, p, beta, stats, names) -> None:
                        lambda: fc.cg_finalize_plain(parts3, state, fc.STEP_PAP))
     for name, (kern, plain) in pairs.items():
         _time_pair(stats[name], kern, plain)
+    n, s4, nnz = op.local_nrow, u.element_size(), op.nnz
+    _model(stats[names[0]], 2 * n * s4, 2 * nnz, s4)
+    _model(stats[names[1]], 2 * n * s4, 2 * nnz + 2 * n, s4)
+    _model(stats[names[2]], 4 * n * s4, 2 * nnz + 4 * n, s4)
+    _model(stats[names[3]], 6 * n * s4, 6 * n, s4)
+    _model(stats[names[4]], parts3.numel() * s4, parts3.numel(), s4)
+    weight, u5 = _conv_weight(op), u.view(1, 1, *u.shape)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # the same f32 function, not TF32's
+    try:
+        stats[names[0]]["library_ms"] = _event_ms(lambda: torch.nn.functional.conv3d(u5, weight, padding=1))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
 
 
 def _graph_ms(fn, reps=20) -> float:
@@ -482,6 +527,63 @@ def _graph_ms(fn, reps=20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _event_ms(fn, reps=20) -> float:
+    """Device ms per call of fn: CUDA events around ``reps`` calls after a
+    warm-up (for library calls that a CUDA graph may not capture)."""
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# the card's rates for the bounds: HBM and peak arithmetic without tensor
+# cores (float32 and float64: NVIDIA's H100 SXM data sheet), at the full
+# 700 W power limit
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {4: 67e12, 8: 34e12}
+
+
+def _model(stat, nbytes, ops, elsize) -> None:
+    """The work of one timed call: bytes that must move (each input read
+    once, each output written once) and arithmetic operations."""
+    stat.update(bytes=nbytes, ops=ops, elsize=elsize)
+
+
+def _bound(stat):
+    """(bound_ms, bound_by) of a timed call: the larger of its bytes over
+    the HBM rate and its operations over the peak rate."""
+    t_bytes = stat["bytes"] / HBM_BYTES_PER_S
+    t_ops = stat["ops"] / PEAK_OPS_PER_S[stat["elsize"]]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _csr(A):
+    """The EllMatrix A (on the card) as a torch sparse CSR tensor: the
+    library's sparse product, timed beside the ELL and DIA kernels."""
+    n, w = A.vals.shape
+    rows = torch.arange(n, device=A.vals.device).unsqueeze(1).expand(n, w)
+    idx = torch.stack([rows[A.valid], A.cols[A.valid].long()])
+    return torch.sparse_coo_tensor(idx, A.vals[A.valid], (n, A.total_nrow or n)).coalesce().to_sparse_csr()
+
+
+def _conv_weight(op):
+    """A u as one 3-D convolution: -1 at the stencil's neighbours, 27 at the
+    centre (28 u - S(u), S including u)."""
+    from hpccg_tpu_torch.operators import stencil_offsets
+
+    w = torch.zeros((1, 1, 3, 3, 3), dtype=op.dtype, device="cuda")
+    for sz, sy, sx in stencil_offsets(op.stencil):
+        w[0, 0, sz + 1, sy + 1, sx + 1] = -1.0
+    w[0, 0, 1, 1, 1] = 27.0
+    return w
+
+
 def _time_pair(stat, kern, plain) -> None:
     """Device ms per call of kern and plain (_graph_ms), timed plain,
     kernel, kernel, plain: the two versions share the card's state."""
@@ -494,6 +596,7 @@ def _counters():
     """kernel -> (wrapper, attribute) of its launch count. K13 and K14 are
     computed by the ELL kernel's float32 instance: their count is K11's, read
     on the wide-scatter solve."""
+    from hpccg_tpu_torch.ops.cuda import collective as col
     from hpccg_tpu_torch.ops.cuda import dia as cdia
     from hpccg_tpu_torch.ops.cuda import ell as cell
     from hpccg_tpu_torch.ops.cuda import fused_cg as fc
@@ -506,7 +609,8 @@ def _counters():
     counters = [(w, "launches") for w in wrappers]
     counters += [(cdia.spmv_dia, "launches_f32"), (cdia.spmv_dia, "launches_f64"),
                  (cell.spmv_ell, "launches_f32"), (cell.spmv_ell, "launches_f64"),
-                 (cell.spmv_ell, "launches_f32"), (cell.spmv_ell, "launches_f32")]
+                 (cell.spmv_ell, "launches_f32"), (cell.spmv_ell, "launches_f32"),
+                 (col.cg_collective, "launches"), (col.cg_collective_pipelined, "launches")]
     return dict(zip(KERNELS, counters))
 
 
@@ -859,9 +963,15 @@ def phase_sparse_kernels(card: str) -> dict:
             what = f"{k_dia.split()[0]} {tag} {str(dtype)[6:]}"
             err = _sparse_pair(lambda: cdia.spmv_dia(P, x), lambda: cdia.spmv_dia_plain(P, x), dtype, what, True)
             stats[k_dia]["max_abs_err"] = max(stats[k_dia]["max_abs_err"], err)
-            st = stats[k_dia] if tag.startswith("128") else {}
+            timed = tag.startswith("128")
+            st = stats[k_dia] if timed else {}
             _time_pair(st, lambda: cdia.spmv_dia(P, x, out=out), lambda: cdia.spmv_dia_plain(P, x, out=out))
             nbytes = _dia_bytes(D)
+            if timed:  # the 128^3 cell: its CSR (from the ELL of the same matrix) is the library's product
+                csr = _csr(_explicit_128(dtype)[0].A)
+                _model(st, nbytes, 2 * csr.values().numel(), D.data.element_size())
+                st["library_ms"] = _event_ms(lambda: torch.mv(csr, x))
+                del csr
             say(f"[sparse] {what}: ok, bit for bit; {D.ndiag} diagonals; {st['ms'] * 1e3:.1f} us vs plain "
                 f"{st['plain_ms'] * 1e3:.1f} ({_gbs(nbytes, st['ms']):.0f} vs {_gbs(nbytes, st['plain_ms']):.0f} "
                 f"GB/s) [{card}]")
@@ -879,9 +989,15 @@ def phase_sparse_kernels(card: str) -> dict:
             err = _sparse_pair(lambda: cell.spmv_ell(S, x), lambda: cell.spmv_ell_plain(S, x), dtype, what, False)
             for key in {name, k_ell}:
                 stats[key]["max_abs_err"] = max(stats[key]["max_abs_err"], err)
-            st = stats[name] if tag.startswith("128") or (name in WIDE and f32) else {}
+            timed = tag.startswith("128") or (name in WIDE and f32)
+            st = stats[name] if timed else {}
             _time_pair(st, lambda: cell.spmv_ell(S, x, out=out), lambda: cell.spmv_ell_plain(S, x, out=out))
             nbytes = _ell_bytes(S)
+            if timed:
+                csr = _csr(A.to("cuda"))
+                _model(st, nbytes, 2 * csr.values().numel(), A.vals.element_size())
+                st["library_ms"] = _event_ms(lambda: torch.mv(csr, x))
+                del csr
             say(f"[sparse] {what}: ok, max err {err:.2e}; width {S.width}; {st['ms'] * 1e3:.1f} us vs plain "
                 f"{st['plain_ms'] * 1e3:.1f} ({_gbs(nbytes, st['ms']):.0f} vs {_gbs(nbytes, st['plain_ms']):.0f} "
                 f"GB/s) [{card}]")
@@ -962,13 +1078,14 @@ def _main_path_wide_scatter() -> None:
 
 def phase_main_path() -> dict:
     """Slice 1's main path, slice 2's, slice 3's and its wide-scatter solves,
-    each with its own counts; the launches reported for each kernel are
+    slice 4's distributed solves, each with its own counts; the launches reported for each kernel are
     those of its own run."""
     first = _drive(_main_path_slice1, SLICE1)
     second = _drive(_main_path_slice2, SLICE2)
     third = _drive(_main_path_slice3, [K9, K10, K11, K12])
     wide = _drive(_main_path_wide_scatter, WIDE)
-    runs = [(SLICE1, first), (SLICE2, second), ([K9, K10, K11, K12], third), (WIDE, wide)]
+    fourth = _drive(_main_path_slice4, SLICE4)
+    runs = [(SLICE1, first), (SLICE2, second), ([K9, K10, K11, K12], third), (WIDE, wide), (SLICE4, fourth)]
     return {n: counts[n] for names, counts in runs for n in names}
 
 
@@ -1181,6 +1298,370 @@ def phase_timing_explicit(card: str, stats: dict) -> None:
             f"[{card}]")
 
 
+# ------------------------------------------------------------ slice 4: the distributed stencil path
+
+COLL_NDEVS = [1, 2, 4, 6, 8]  # the rank counts of tests/test_collective.py, every rank on one card
+# per-rank shapes of the kernel-vs-plain phase: two unaligned ones, and one
+# whose 64 work items outnumber a rank's blocks at 6 and 8 ranks
+COLL_SHAPES = [(33, 17, 9), (64, 48, 13), (128, 64, 16)]
+COLL_MULTI = (128, 64, 16)
+COLL_ITERS = 30
+# pipecg against another pipecg run (trace rtol, floor) and x: its w = A r
+# and z = A s recurrences carry each run's rounding forward, and two runs
+# part faster than cg's. Readings over this phase's cases on an H100
+# (PERF.md): f32 trace 2.8e-3 above 1e-4 of trace[0], x 8.7e-5; f64
+# trace 1.7e-9 above 1e-9, x 1.6e-13.
+PIPE_TRACE = {torch.float32: (1e-2, 1e-4), torch.float64: (1e-6, 1e-9)}
+PIPE_X_RTOL = {torch.float32: 2e-3, torch.float64: 1e-12}
+# The main path's 150-iteration one-reduction solves. A float32 pipecg
+# recurrence residual follows the exact trajectory only until the true
+# residual stagnates, then each run's rounding, with spikes: on the CPU the
+# JAX package's f32 pipecg and the port's plain one part by 0.99 at 1e-3 of
+# trace[0] (tests/test_torch_methods.py, PERF.md). So a one-reduction
+# trace is held over the iterations where the stencil cg trace is above
+# MAIN_HEAD[method] of trace[0], within MAIN_TRACE[method] = (rtol against
+# its plain version, against the stencil cg trace) (the tests hold the
+# port's plain f32 pipecg to its f64 trajectory within 1e-3 there;
+# readings on an H100: K15 cg1 3.2e-6 from its plain version, K16 1.1e-4
+# from its plain version and 7.2e-5 from stencil cg). Its float32 x is
+# held by its true residual ||b - A x|| / ||b|| within MAIN_X: the
+# attainable accuracy of f32 pipecg after 150 iterations follows the
+# rounding, 1.3e-4 to 7.9e-1 at 64^3 for the port's plain version on the
+# CPU as the thread count alone changes its sums (the tests), so its x is
+# only held to be better than x0 = 0; K15 cg1 reaches 1.4e-6 to 1.6e-6 on
+# an H100. The float64 solves of both methods hold x to the plain
+# version's: MAIN_F64 = (trace rtol, floor, x rtol of max|x|) (the tests
+# hold the port's plain f64 pipecg to the JAX package's within 1e-9 of
+# max|x| over 150 iterations; readings on an H100: K15 cg1 trace 1.1e-14,
+# x 3.3e-15; K16 trace 6.5e-9 above 1e-9, x 4.5e-11).
+MAIN_HEAD = {"cg1": 1e-5, "pipecg": 1e-3}
+MAIN_TRACE = {"cg1": (1e-4, 1e-3), "pipecg": (1e-3, 1e-3)}
+MAIN_X = {"cg1": 1e-5, "pipecg": 1.0}
+MAIN_F64 = {"cg1": (1e-9, 1e-9, 1e-12), "pipecg": (1e-6, 1e-9, 1e-8)}
+METHOD_KERNEL = {"cg": K15, "cg1": K15, "pipecg": K16}
+
+
+def _head_rel(tr, ref, rtol, floor, what) -> float:
+    """max |tr - ref| / ref over the entries where ref > floor * ref[0]
+    (below, a one-reduction recurrence residual follows each run's rounding
+    and may flush to 0); fails above rtol."""
+    head = ref > floor * ref[0]
+    worst = float(((tr - ref).abs() / ref)[head].max())
+    if not worst <= rtol:
+        raise AssertionError(f"{what}: trace {worst:.3e} from the reference above {floor} of trace[0]")
+    return worst
+
+
+def _one_card(ndev):
+    """A mesh of ndev ranks, every one on cuda:0."""
+    from hpccg_tpu_torch.parallel import make_mesh
+
+    return make_mesh(ndev, devices=["cuda:0"] * ndev)
+
+
+def _coll_kernel(method):
+    """The wrapper of the collective kernel that runs ``method``."""
+    from hpccg_tpu_torch.ops.cuda import collective as col
+
+    if method == "pipecg":
+        return col.cg_collective_pipelined
+    return functools.partial(col.cg_collective, method=method)
+
+
+def _coll_limits(method, dtype):
+    """(trace rtol, floor, x rtol) of a collective solve against its plain
+    version."""
+    rtol, floor = (PIPE_TRACE if method == "pipecg" else WS_TRACE)[dtype]
+    return rtol, floor, (PIPE_X_RTOL if method == "pipecg" else WS_X_RTOL)[dtype]
+
+
+def phase_collective_kernels() -> dict:
+    """K15 (cg, cg1) and K16 (pipecg) against their plain versions with
+    every rank on cuda:0, at 1, 2, 4, 6 and 8 ranks, COLL_ITERS iterations:
+    per rank 33x17x9 (27- and 7-point), 64x48x13 and COLL_MULTI (27-point;
+    at 6 and 8 ranks COLL_MULTI's work items outnumber a rank's blocks),
+    float32 and float64. niters equal, the trace within its limits above
+    the floor (below it a recurrence residual follows each run's rounding;
+    a 7-point solve stops there, on a tolerance between two of the plain
+    trace's entries, as phase_whole_solve_kernels does: it flushes below),
+    x, and two launches bit-identical. Returns K15/K16's max|x -
+    x_plain| over all cases."""
+    from hpccg_tpu_torch import ProblemConfig
+    from hpccg_tpu_torch.ops.cuda import collective as col
+    from hpccg_tpu_torch.parallel import generate_problem_sharded
+    from hpccg_tpu_torch.parallel.cg import local_operator
+
+    stats = {name: {"max_abs_err": 0.0} for name in SLICE4}
+    multi = 0
+    for ndev in COLL_NDEVS:
+        mesh = _one_card(ndev)
+        for dims in COLL_SHAPES:
+            for stencil in (27, 7) if dims == COLL_SHAPES[0] else (27,):
+                for dtype in (torch.float32, torch.float64):
+                    cfg = ProblemConfig(*dims, stencil=stencil, dtype=dtype)
+                    op, prob = local_operator(cfg), generate_problem_sharded(cfg, mesh)
+                    tag = f"{ndev} x {dims[0]}x{dims[1]}x{dims[2]} {stencil}pt {str(dtype)[6:]}"
+                    line = []
+                    for method in ("cg", "cg1", "pipecg"):
+                        what = f"{METHOD_KERNEL[method].split()[0]} {method} {tag}"
+                        rtol, floor, xrtol = _coll_limits(method, dtype)
+                        want = col.solve_plain(op, prob.b, prob.x0, method=method, max_iter=COLL_ITERS)
+                        tol = _ws_tolerance(want.trace, floor) if stencil == 7 else 0.0
+                        if tol:
+                            want = col.solve_plain(op, prob.b, prob.x0, method=method, max_iter=COLL_ITERS,
+                                                   tolerance=tol)
+                        kern = _coll_kernel(method)
+                        got, again = (kern(op, prob.b, prob.x0, max_iter=COLL_ITERS, tolerance=tol) for _ in range(2))
+                        torch.cuda.synchronize()
+                        if int(got.niters) != int(want.niters):
+                            raise AssertionError(f"{what}: niters {int(got.niters)} vs plain {int(want.niters)}")
+                        n = int(want.niters) + 1
+                        ref = want.trace[:n].double().cpu()
+                        worst = _head_rel(got.trace[:n].double().cpu(), ref, rtol, floor, what)
+                        if not bool(torch.isnan(got.trace[n:]).all()):
+                            raise AssertionError(f"{what}: trace entries past niters")
+                        gx, wx = torch.cat(got.x), torch.cat(want.x)
+                        # a flush of both r.r and r.u (f32 cg1, 7-point) turns x to NaN on both
+                        # sides one iteration later: the reference recurrence's 0/0
+                        nan = torch.isnan(wx)
+                        if not torch.equal(torch.isnan(gx), nan):
+                            raise AssertionError(f"{what}: x is NaN where the plain version's is not")
+                        xerr = float((gx - wx)[~nan].abs().max()) if not bool(nan.all()) else 0.0
+                        if not xerr <= xrtol * float(wx[~nan].abs().max() if not bool(nan.all()) else 1.0):
+                            raise AssertionError(f"{what}: max|x - x_plain| = {xerr:.3e}")
+                        same = all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got.x, again.x))
+                        if not (same and torch.equal(_bits(got.trace), _bits(again.trace))):
+                            raise AssertionError(f"{what}: two launches differ")
+                        stat = stats[METHOD_KERNEL[method]]
+                        stat["max_abs_err"] = max(stat["max_abs_err"], xerr)
+                        bpr = col.blocks_per_rank(op, ndev, dtype, method)
+                        items = col.work_items(op)
+                        multi += int(dims == COLL_MULTI and items > bpr)
+                        line.append(f"{method} niters {n - 1} trace {worst:.1e} x {xerr:.1e} ({items} items/{bpr} blocks)")
+                    say(f"[collective] {tag}: ok, bit-identical; " + "; ".join(line))
+    if not multi:
+        raise AssertionError(f"{COLL_MULTI}: no rank count gave a rank more work items than blocks")
+    return stats
+
+
+# the slice's main path: (label, ranks, per-rank block); the reference's
+# headline unit, its weak-scaling protocol (64^3 per rank, BASELINE.md:19)
+# and its strong-scaling protocol (64x64x1024 global on 8 ranks, :20)
+MAIN_CELLS = [("1 x 100^3", 1, (100, 100, 100))] + [
+    (f"weak {n} x 64^3", n, (64, 64, 64)) for n in (1, 2, 4, 8)] + [
+    ("strong 64x64x1024 on 8", 8, (64, 64, 128))]
+MAIN_RUNS = [("collective", "cg"), ("collective", "cg1"), ("collective", "pipecg"), ("pallas_fused", "cg"),
+             ("stencil", "cg")]
+
+
+def _true_residual(op, bs, xs) -> float:
+    """||b - A x|| / ||b|| of a sharded solve, in float64."""
+    from hpccg_tpu_torch.parallel.halo import stencil_matvec_halo
+
+    x = tuple(v.double() for v in xs)
+    ax = stencil_matvec_halo(dataclasses.replace(op, dtype=torch.float64), x)
+    r = torch.cat([b.double() - v for b, v in zip(bs, ax)])
+    return float(r.norm() / torch.cat([v.double() for v in bs]).norm())
+
+
+def _one_reduction_check(res, plain, ref_trace, op, prob, method, what) -> str:
+    """A float32 cg1/pipecg solve against its plain version and the stencil
+    cg trace (MAIN_HEAD, MAIN_TRACE, MAIN_X)."""
+    niters, pn = int(res.niters), int(plain.niters)
+    early = res if niters < pn else plain
+    if niters != pn and float(early.normr) != 0.0:
+        raise AssertionError(f"{what}: niters {niters} vs its plain version's {pn}, no flush to 0")
+    n = min(niters, pn) + 1
+    head = ref_trace[:n] > MAIN_HEAD[method] * ref_trace[0]
+    tr, pt, cg = res.trace[:n].double().cpu(), plain.trace[:n].double().cpu(), ref_trace[:n]
+    worst = [float(((a - b).abs() / b)[head].max()) for a, b in ((tr, pt), (tr, cg), (pt, cg))]
+    rtol_plain, rtol_cg = MAIN_TRACE[method]
+    if not (worst[0] <= rtol_plain and max(worst[1:]) <= rtol_cg):
+        raise AssertionError(f"{what}: traces (kernel-plain, kernel-cg, plain-cg) {worst} over the {int(head.sum())} "
+                             f"iterations above {MAIN_HEAD[method]} of trace[0]")
+    got, want = (_true_residual(op, prob.b, r.x) for r in (res, plain))
+    # a flush of both r.r and r.u turns the plain x to NaN one iteration later (the reference recurrence's 0/0)
+    if not (got <= MAIN_X[method] and (want <= MAIN_X[method] or math.isnan(want))):
+        raise AssertionError(f"{what}: true residual {got:.3e}, plain {want:.3e}, limit {MAIN_X[method]}")
+    return (f"plain niters {pn}; trace within {worst[0]:.2e} of plain, {worst[1]:.2e} of stencil cg over "
+            f"{int(head.sum())} iterations; true residual {got:.2e} (plain {want:.2e})")
+
+
+def _f64_check(res, plain, method, what) -> str:
+    """A float64 cg1/pipecg solve against its plain version (MAIN_F64)."""
+    rtol, floor, xrtol = MAIN_F64[method]
+    if int(res.niters) != int(plain.niters) or int(res.niters) != 149:
+        raise AssertionError(f"{what}: niters {int(res.niters)}, plain {int(plain.niters)}")
+    worst = _head_rel(res.trace.double().cpu(), plain.trace.double().cpu(), rtol, floor, what)
+    gx, wx = torch.cat(res.x), torch.cat(plain.x)
+    xerr = float((gx - wx).abs().max())
+    if not xerr <= xrtol * float(wx.abs().max()):
+        raise AssertionError(f"{what}: max|x - x_plain| = {xerr:.3e}")
+    return f"trace within {worst:.2e} of plain above {floor} of trace[0]; x {xerr:.2e}"
+
+
+def _main_path_slice4() -> None:
+    """make_distributed_cg at full width on every MAIN_CELLS cell, float32,
+    max_iter 150, tolerance 0: collective (cg, cg1, pipecg; one launch of
+    K15/K16 each), pallas_fused and stencil, against the single-device
+    stencil solve of the same global grid; then collective cg1 and pipecg
+    in float64. cg runs 149 iterations. cg1 and pipecg are held to their
+    plain versions' niters, except where one of the two stopped early on an
+    exact 0 (the f32 cg1 recurrence residual flushes at an iteration that
+    depends on the rounding: 143 against 149 at 64^3 on one H100 run), and
+    as _one_reduction_check and _f64_check hold them."""
+    from hpccg_tpu_torch import ProblemConfig, generate_problem, make_cg
+    from hpccg_tpu_torch.ops.cuda import collective as col
+    from hpccg_tpu_torch.parallel import generate_problem_sharded, make_distributed_cg
+    from hpccg_tpu_torch.parallel.cg import local_operator
+
+    def run(cfg, mesh, prob, backend, method):
+        before = _counts()
+        res = make_distributed_cg(cfg, mesh, max_iter=150, tolerance=0.0, backend=backend, method=method)(
+            prob.b, prob.x0)
+        torch.cuda.synchronize()
+        return res, {n: c - before[n] for n, c in _counts().items()}
+
+    def one_launch(delta, method, what):
+        kernel = METHOD_KERNEL[method]
+        if delta[kernel] != 1 or sum(delta.values()) != 1:
+            raise AssertionError(f"{what}: expected one launch of {kernel}, got {delta}")
+
+    for label, ndev, dims in MAIN_CELLS:
+        cfg = ProblemConfig(*dims, dtype=torch.float32)
+        op = local_operator(cfg)
+        mesh = _one_card(ndev)
+        prob = generate_problem_sharded(cfg, mesh)
+        gprob = generate_problem(ProblemConfig(dims[0], dims[1], dims[2] * ndev, dtype=torch.float32), "cuda")
+        ref = make_cg(gprob.A, max_iter=150, tolerance=0.0, backend="stencil")(gprob.b, gprob.x0)
+        ref_trace, ref_x = ref.trace.double().cpu(), ref.x
+        for backend, method in MAIN_RUNS:
+            what = f"{label} {backend} {method}"
+            res, delta = run(cfg, mesh, prob, backend, method)
+            niters, x = int(res.niters), torch.cat(res.x)
+            if not bool(torch.isfinite(x).all()) or not math.isfinite(float(res.normr)):
+                raise AssertionError(f"{what}: non-finite x or normr")
+            if method == "cg":
+                if niters != 149:
+                    raise AssertionError(f"{what}: niters {niters}")
+                worst, tail = _trace_check(res.trace.double().cpu(), ref_trace, what)
+                xerr = float((x - ref_x).abs().max())
+                if not xerr <= 1e-4:
+                    raise AssertionError(f"{what}: max|x - x_stencil| {xerr:.3e}")
+                note = f"trace within {worst:.2e} of single-device stencil's, {tail:.2e} below; x {xerr:.2e}"
+            else:
+                plain = col.solve_plain(op, prob.b, prob.x0, method=method, max_iter=150)
+                note = _one_reduction_check(res, plain, ref_trace, op, prob, method, what)
+            if backend == "collective":
+                one_launch(delta, method, what)
+            elif backend == "pallas_fused":
+                if min(delta[n] for n in SLICE1[2:]) <= 0:
+                    raise AssertionError(f"{what}: K3/K4/finalize not all launched: {delta}")
+            elif any(delta.values()):
+                raise AssertionError(f"{what}: the stencil backend launched a kernel")
+            say(f"[main] {what}: niters {niters} normr {float(res.normr):.6e}; {note}; launches {_launch_note(delta)}")
+        cfg64 = ProblemConfig(*dims, dtype=torch.float64)
+        prob64 = generate_problem_sharded(cfg64, mesh)
+        for method in ("cg1", "pipecg"):
+            what = f"{label} collective {method} f64"
+            res, delta = run(cfg64, mesh, prob64, "collective", method)
+            plain = col.solve_plain(local_operator(cfg64), prob64.b, prob64.x0, method=method, max_iter=150)
+            note = _f64_check(res, plain, method, what)
+            one_launch(delta, method, what)
+            say(f"[main] {what}: niters {int(res.niters)} normr {float(res.normr):.6e}; {note}; launches "
+                f"{_launch_note(delta)}")
+
+
+def phase_golden_collective() -> None:
+    """The golden run as two 10x10x5 float64 ranks on collective, method cg."""
+    from hpccg_tpu_torch import ProblemConfig
+    from hpccg_tpu_torch.parallel import generate_problem_sharded, make_distributed_cg
+
+    cfg = ProblemConfig(10, 10, 5, dtype=torch.float64)
+    mesh = _one_card(2)
+    prob = generate_problem_sharded(cfg, mesh)
+    res = make_distributed_cg(cfg, mesh, max_iter=150, tolerance=0.0, backend="collective", method="cg")(
+        prob.b, prob.x0)
+    _check_golden(res.trace.cpu().numpy(), int(res.niters), "2 ranks x 10x10x5 on collective (K15, cg)")
+
+
+def phase_cli_methods() -> None:
+    """The single-device methods through the CLI at 100^3: cg1 in float32
+    (its recurrence residual may flush to 0 near iteration 140: niters is
+    printed, not held to 149), pipecg with replacement every 50 iterations
+    (149), and float64 refinement, 3 rounds."""
+    for extra in (["--dtype", "float32", "--method", "cg1"],
+                  ["--dtype", "float32", "--method", "pipecg", "--rr-every", "50"],
+                  ["--dtype", "float64", "--refine", "3"]):
+        report, trace, _ = _cli(["100", "100", "100", "--json", *extra], " ".join(extra))
+        n, final = report["Number of iterations"], report["Final residual"]
+        if not (n > 100 and math.isfinite(final)) or ("--rr-every" in extra and n != 149):
+            raise AssertionError(f"cli {' '.join(extra)}: {n} iterations, final residual {final}")
+        if "--refine" in extra and not final < 1e-10 * trace[0]:
+            raise AssertionError(f"cli --refine 3: final residual {final} against {trace[0]}")
+        say(f"[cli] {' '.join(extra)}: rc 0, iterations {n}, final residual {final:.6e}, "
+            f"time summary {json.dumps(report['Time Summary'])}")
+
+
+def phase_timing_collective(card: str, stats: dict) -> None:
+    """Slope-timed us per iteration (legs of 17 and 97 iterations, below
+    the f32 cg1 flush): collective (cg, cg1, pipecg) at 1 x 100^3 beside
+    the single-device megakernel, and at 4 x 100^3 and 8 x 64^3 beside
+    distributed pallas_fused. N ranks share one card here: these are no
+    scaling numbers. Then K15 (cg) and K16 against their plain versions at
+    1 x 100^3, plain, kernel, kernel, plain."""
+    from hpccg_tpu_torch import ProblemConfig, generate_problem, make_cg
+    from hpccg_tpu_torch.ops.cuda import collective as col
+    from hpccg_tpu_torch.parallel import generate_problem_sharded, make_distributed_cg
+    from hpccg_tpu_torch.parallel.cg import local_operator
+    from hpccg_tpu_torch.utils.timing import time_loop_slope
+
+    def slope(run):
+        return time_loop_slope(run, device="cuda", short=17, long=97) * 1e6
+
+    for ndev, dims in ((1, (100, 100, 100)), (4, (100, 100, 100)), (8, (64, 64, 64))):
+        cfg = ProblemConfig(*dims, dtype=torch.float32)
+        mesh = _one_card(ndev)
+        prob = generate_problem_sharded(cfg, mesh)
+        n = cfg.local_nrow * ndev
+        tag = f"{ndev} x {dims[0]}x{dims[1]}x{dims[2]} f32"
+        runs = [("collective", m) for m in ("cg", "cg1", "pipecg")] + [("pallas_fused", "cg")]
+        for backend, method in runs:
+            t = slope(lambda k: make_distributed_cg(cfg, mesh, max_iter=k + 1, backend=backend, method=method)(
+                prob.b, prob.x0))
+            say(f"[timing] {tag} {backend} {method}: {t:.2f} us/iter, {27 * n / t / 1e3:.1f} Gnnz/s "
+                f"({ndev} ranks on one card) [{card}]")
+        if ndev != 4:  # one solve's device busy share: one launch (collective) against ~5 per rank
+            for backend in ("collective", "pallas_fused"):
+                def run(k, backend=backend):
+                    make_distributed_cg(cfg, mesh, max_iter=k + 1, backend=backend)(prob.b, prob.x0)
+
+                _busy_share(run, 100, card, f"{tag} {backend} cg one 100-iteration solve",
+                            "collective_kernel" if backend == "collective" else "stencil_kernel")
+        if ndev == 1:
+            g = generate_problem(cfg, "cuda")
+            t = slope(lambda k: make_cg(g.A, max_iter=k + 1, backend="megakernel")(g.b, g.x0))
+            say(f"[timing] {tag} single-device megakernel (K5): {t:.2f} us/iter [{card}]")
+    cfg = ProblemConfig(100, 100, 100, dtype=torch.float32)
+    op, prob = local_operator(cfg), generate_problem_sharded(cfg, _one_card(1))
+    for name, method in ((K15, "cg"), (K16, "pipecg")):
+        kern = _coll_kernel(method)
+
+        def plain(k):
+            col.solve_plain(op, prob.b, prob.x0, method=method, max_iter=k + 1)
+
+        def kernel(k):
+            kern(op, prob.b, prob.x0, max_iter=k + 1)
+
+        t_p1, t_k1, t_k2, t_p2 = (slope(f) for f in (plain, kernel, kernel, plain))
+        stats[name]["ms"], stats[name]["plain_ms"] = (t_k1 + t_k2) / 2e3, (t_p1 + t_p2) / 2e3
+        # one iteration: its state read and written once (cg: x, r, p; pipecg: x, r, w, p, s, z)
+        nvec = 6 if method == "cg" else 12
+        _model(stats[name], nvec * op.local_nrow * 4, 2 * op.nnz + 2 * nvec * op.local_nrow, 4)
+        say(f"[timing] {name} ({method}) at 1 x 100^3 f32: {stats[name]['ms'] * 1e3:.2f} us/iter vs plain "
+            f"{stats[name]['plain_ms'] * 1e3:.2f} [{card}]")
+
+
 def _phase(name, fn, *args):
     """fn(*args), with its seconds printed."""
     t0 = time.perf_counter()
@@ -1196,18 +1677,23 @@ def main() -> int:
     stats.update(_phase("whole-solve kernels vs plain", phase_whole_solve_kernels))
     _phase("large offsets", phase_large_offsets)
     stats.update(_phase("sparse kernels vs plain", phase_sparse_kernels, card))
+    stats.update(_phase("collective kernels vs plain", phase_collective_kernels))
     launches = _phase("main paths", phase_main_path)
     _phase("golden", phase_golden)
+    _phase("golden, collective", phase_golden_collective)
     _phase("cli", phase_cli)
+    _phase("cli, methods", phase_cli_methods)
     _phase("cli, file mode", phase_cli_files)
     _phase("timing", phase_timing, card)
     _phase("timing, explicit matrices", phase_timing_explicit, card, stats)
-    kernels = [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name],
-         "max_abs_err": stats[name]["max_abs_err"], "ms": stats[name]["ms"],
-         "plain_ms": stats[name]["plain_ms"]}
-        for name, (src, rep) in KERNELS.items()
-    ]
+    _phase("timing, collective", phase_timing_collective, card, stats)
+    kernels = []
+    for name, (src, rep) in KERNELS.items():
+        st = stats[name]
+        bound_ms, bound_by = _bound(st)
+        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name],
+                        "max_abs_err": st["max_abs_err"], "ms": st["ms"], "plain_ms": st["plain_ms"],
+                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": st.get("library_ms")})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

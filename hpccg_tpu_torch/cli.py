@@ -15,6 +15,15 @@ the per-iteration residual lines and the YAML (or JSON) report with the JAX
 package's keys: Time/FLOPS/MFLOPS summaries and the FLOP model of
 main.cpp:224-227.
 
+Stencil mode also takes ``--method cg1|pipecg`` (with ``--rr-every K``
+residual replacement), ``--refine N`` (float64 refinement around float32
+inner solves; single device) and ``--mesh N``: the z-stacked problem of N
+blocks of nx*ny*nz on a single-controller mesh (``parallel``), N ranks on
+the CPU with ``--device cpu``, one per card on CUDA (``--mesh N`` needs N
+cards, as the JAX package needs N chips), with the distributed backends and
+``--backend collective`` (the whole solve in one launch of K15/K16). File
+mode runs on one device.
+
 Total is timed with CUDA events around a warm solve (the host clock on the
 CPU). SPARSEMV is slope-timed on K1 (empty for bfloat16: K1 has no bf16
 instance yet), in file mode on the matrix's kernel (K9/K10 for DIA,
@@ -34,12 +43,11 @@ import sys
 import torch
 
 from hpccg_tpu_torch.operators import DiaMatrix, StencilOperator
-from hpccg_tpu_torch.solver import BACKENDS, WHOLE_SOLVE_BACKENDS
+from hpccg_tpu_torch.solver import BACKENDS, METHODS, WHOLE_SOLVE_BACKENDS, warn_cg_only
 
 # backends of explicit matrices only: on a generated problem the JAX package
 # runs its stencil matvec under these names, which is not ported
 FILE_BACKENDS = ("ell", "dia")
-NOT_PORTED_BACKENDS = ("collective",)
 DTYPES = {"float64": torch.float64, "float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -59,16 +67,25 @@ def build_argparser() -> argparse.ArgumentParser:
         "max_iter 150 (main_old.cpp:166). Overrides --max-iter/--tolerance",
     )
     ap.add_argument("--dtype", default="float64", choices=list(DTYPES))
-    ap.add_argument("--mesh", default="1", metavar="N", help="only 1 is ported")
+    ap.add_argument("--mesh", default="1", metavar="N",
+                    help="ranks of the 1-D z mesh (the 2-D HxZ mesh is not yet ported)")
     ap.add_argument(
         "--backend",
         default="auto",
-        choices=[*BACKENDS, *FILE_BACKENDS, *NOT_PORTED_BACKENDS],
-        help="auto = pallas_fused on CUDA (streamkernel for bfloat16), stencil on the CPU; in file mode "
-        "auto/ell/dia run the matrix's kernel and stencil its plain version",
+        choices=[*BACKENDS, *FILE_BACKENDS, "collective"],
+        help="auto = pallas_fused on CUDA (streamkernel for bfloat16), stencil on the CPU; at --mesh > 1 "
+        "pallas (pallas_dd for float64) on CUDA; collective (--mesh > 1) = the whole solve in one "
+        "launch of K15/K16; in file mode auto/ell/dia run the matrix's kernel and stencil its plain version",
     )
-    ap.add_argument("--method", default="cg", choices=["cg", "cg1", "pipecg"])
-    ap.add_argument("--refine", type=int, default=0, metavar="N")
+    ap.add_argument("--method", default="cg", choices=list(METHODS),
+                    help="cg: the reference recurrence (2 reductions/iter); cg1: Chronopoulos-Gear (1); "
+                    "pipecg: Ghysels-Vanroose (the reduction overlaps the SpMV)")
+    ap.add_argument("--rr-every", type=int, default=0, metavar="K",
+                    help="residual replacement for --method cg1/pipecg every K iterations (0 = off; not "
+                    "for the collective kernels' recurrences)")
+    ap.add_argument("--refine", type=int, default=0, metavar="N",
+                    help="N float64 refinement rounds around float32 inner solves (--dtype float64, "
+                    "single device)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--json", action="store_true", help="emit JSON instead of YAML")
     ap.add_argument("--quiet", action="store_true", help="suppress residual lines")
@@ -101,14 +118,10 @@ def _not_ported(args) -> str | None:
         return "--dtype bfloat16 in file mode"
     if not file_mode and args.backend in FILE_BACKENDS:
         return f"--backend {args.backend} on a generated problem"
-    if args.mesh != "1":
-        return f"--mesh {args.mesh}"
-    if args.method != "cg":
-        return f"--method {args.method}"
-    if args.refine:
-        return "--refine"
-    if args.backend in NOT_PORTED_BACKENDS:
-        return f"--backend {args.backend}"
+    if not args.mesh.isdigit():
+        return f"--mesh {args.mesh} (the 2-D HxZ mesh)"
+    if file_mode and int(args.mesh) > 1:
+        return f"--mesh {args.mesh} in file mode"
     return None
 
 
@@ -167,7 +180,14 @@ def _kernel_bench(prob, backend_used, device):
 
         return float("nan"), time_loop_slope(k4_loop, device=device), t_spmv
 
-    x_in, w = prob.b, prob.x0.clone()
+    return (*_vector_bench(prob.b, prob.x0.clone(), device), t_spmv)
+
+
+def _vector_bench(x_in, w, device):
+    """Seconds per call of ddot(x, x) and of w = x + 0.5 w (plain torch),
+    slope-timed."""
+    from hpccg_tpu_torch.ops.vector import ddot, waxpby
+    from hpccg_tpu_torch.utils.timing import time_loop_slope
 
     def wax_loop(k):
         nonlocal w
@@ -178,11 +198,54 @@ def _kernel_bench(prob, backend_used, device):
         for _ in range(k):
             ddot(x_in, x_in)
 
-    return (
-        time_loop_slope(dot_loop, device=device),
-        time_loop_slope(wax_loop, device=device),
-        t_spmv,
-    )
+    return time_loop_slope(dot_loop, device=device), time_loop_slope(wax_loop, device=device)
+
+
+def _distributed(args, cfg, ndev: int, device):
+    """(solve, sharded problem, mesh, backend label) for --mesh N > 1: N
+    ranks on the CPU with --device cpu, else one per CUDA card."""
+    from hpccg_tpu_torch.parallel import generate_problem_sharded, make_distributed_cg, make_mesh
+    from hpccg_tpu_torch.parallel.cg import resolve_distributed_backend
+
+    mesh = make_mesh(ndev, devices=[device] * ndev if device.type == "cpu" else None)
+    prob = generate_problem_sharded(cfg, mesh)
+    backend = args.backend
+    if backend in WHOLE_SOLVE_BACKENDS:
+        print(f"# --backend {backend} is not a distributed solver backend; using auto", file=sys.stderr)
+        backend = "auto"
+    backend = warn_cg_only(resolve_distributed_backend(cfg, backend, device), args.method)
+    if backend == "collective" and not mesh.one_device:
+        raise ValueError(f"--backend collective runs every rank on one card; --mesh {ndev} spans {ndev} cards "
+                         "(the multi-card launch is queued in ROADMAP)")
+    solve = make_distributed_cg(cfg, mesh, max_iter=args.max_iter, tolerance=args.tolerance, backend=backend,
+                                method=args.method, replace_every=args.rr_every)
+    return solve, prob, mesh, f"distributed:{backend}"
+
+
+def _kernel_bench_distributed(prob, backend_used, device, mesh, cfg):
+    """(ddot, waxpby, spmv) seconds per call at --mesh > 1: the sharded
+    matvec of the tier that solved (K1 with halo planes, or the plain halo'd
+    matvec on stencil), DDOT and WAXPBY on the global vectors (NaN for the
+    collective whole solve, where they are fused)."""
+    from hpccg_tpu_torch.parallel.cg import local_operator
+    from hpccg_tpu_torch.parallel.halo import HaloPlanes, kernel_matvec, stencil_matvec_halo
+    from hpccg_tpu_torch.utils.timing import time_loop_slope
+
+    op = local_operator(cfg)
+    halo = HaloPlanes(op, mesh.devices, cfg.dtype)
+    bufs = [tuple(v.clone() for v in prob.xexact), tuple(torch.empty_like(v) for v in prob.b)]
+
+    def spmv_loop(k):
+        for i in range(k):
+            if backend_used == "distributed:stencil":
+                bufs[(i + 1) % 2] = stencil_matvec_halo(op, bufs[i % 2])
+            else:
+                kernel_matvec(op, halo, bufs[i % 2], bufs[(i + 1) % 2])
+
+    t_spmv = float("nan") if cfg.dtype == torch.bfloat16 else time_loop_slope(spmv_loop, device=device)
+    if backend_used == "distributed:collective":
+        return float("nan"), float("nan"), t_spmv
+    return (*_vector_bench(mesh.unshard(prob.b), mesh.unshard(prob.x0), device), t_spmv)
 
 
 def main(argv=None) -> int:
@@ -203,7 +266,7 @@ def main(argv=None) -> int:
         raise SystemExit("error: no CUDA device available; pass --device cpu to run on the CPU")
 
     from hpccg_tpu_torch import ProblemConfig, generate_problem
-    from hpccg_tpu_torch.solver import make_cg, resolve_backend
+    from hpccg_tpu_torch.solver import make_cg, solve_backend
     from hpccg_tpu_torch.utils.report import Report
     from hpccg_tpu_torch.utils.timing import elapsed, fence
 
@@ -223,15 +286,46 @@ def main(argv=None) -> int:
     else:
         nx, ny, nz = (int(d) for d in args.dims)
         cfg = ProblemConfig(nx, ny, nz, stencil=args.stencil, dtype=dtype)
-        prob = generate_problem(cfg, device)
-        backend_used = resolve_backend(args.backend, device, dtype)
+    ndev = int(args.mesh)
+    mesh = None
+    if ndev > 1 and args.refine > 0:
+        print("# --refine is a single-device path; ignoring it for this solve (use --mesh 1)", file=sys.stderr)
+        args.refine = 0
+    if not file_mode and args.backend == "collective" and ndev <= 1:
+        print("# --backend collective needs --mesh > 1 (the whole solve of every rank in one launch); "
+              "using auto", file=sys.stderr)
+        args.backend = "auto"
     try:
-        solve = make_cg(prob.A, max_iter=args.max_iter, tolerance=args.tolerance, backend=args.backend)
-    except ValueError as err:  # a dtype the backend's kernels do not take
+        if ndev > 1:
+            solve, prob, mesh, backend_used = _distributed(args, cfg, ndev, device)
+        elif args.refine > 0:
+            if dtype != torch.float64:
+                print("error: --refine requires --dtype float64", file=sys.stderr)
+                return 2
+            from hpccg_tpu_torch.solver import cg_solve_refined
+
+            if not file_mode:
+                prob = generate_problem(cfg, device)
+            backend_used = f"refine({args.backend})"
+
+            def solve(b, x0):
+                return cg_solve_refined(prob.A, b, x0, inner_max_iter=args.max_iter, outer_max_iter=args.refine,
+                                        tolerance=args.tolerance, backend=args.backend, method=args.method,
+                                        replace_every=args.rr_every)
+        else:
+            if not file_mode:
+                prob = generate_problem(cfg, device)
+                backend_used = solve_backend(args.backend, args.method, device, dtype)
+            solve = make_cg(prob.A, max_iter=args.max_iter, tolerance=args.tolerance, backend=args.backend,
+                            method=args.method, replace_every=args.rr_every)
+    except ValueError as err:  # a dtype the backend's kernels do not take; too few devices
         print(f"error: {err}", file=sys.stderr)
         return 2
 
-    if args.validate:
+    if args.validate and mesh is not None:
+        print("# --validate: pre-solve invariant checks run single-device only; post-solve finiteness check "
+              "still applies", file=sys.stderr)
+    elif args.validate:
         from hpccg_tpu_torch.utils.checks import validate_problem
 
         print(f"# problem validated: {validate_problem(prob)}", file=sys.stderr)
@@ -252,7 +346,8 @@ def main(argv=None) -> int:
     if args.check:
         from hpccg_tpu_torch.ops.vector import compute_residual
 
-        check_residual = float(compute_residual(res.x, prob.xexact))
+        x, xexact = (res.x, prob.xexact) if mesh is None else (mesh.unshard(res.x), mesh.unshard(prob.xexact))
+        check_residual = float(compute_residual(x, xexact))
         print(f"Difference between computed and exact = {check_residual:.6g}")
 
     if args.validate:
@@ -264,9 +359,14 @@ def main(argv=None) -> int:
         # ref HPCCG.cpp:342-344,356,372-373
         print_freq = min(max(args.max_iter // 10, 1), 50)
         print(f"Initial Residual = {trace[0]:.6g}")
-        for k in range(1, niters + 1):
-            if k % print_freq == 0 or k + 1 == args.max_iter:
-                print(f"Iteration = {k}   Residual = {trace[k]:.6g}")
+        if args.refine > 0:
+            for k in range(1, len(trace)):
+                if trace[k] == trace[k]:
+                    print(f"Refinement round = {k}   Residual = {trace[k]:.6g}")
+        else:
+            for k in range(1, niters + 1):
+                if k % print_freq == 0 or k + 1 == args.max_iter:
+                    print(f"Iteration = {k}   Residual = {trace[k]:.6g}")
     print(f"Elapsed time: {t_total:.6g} s", file=sys.stderr)
 
     # --- FLOP model (main.cpp:217-227) ---
@@ -280,24 +380,29 @@ def main(argv=None) -> int:
 
     t_ddot = t_waxpby = t_spmv = float("nan")
     if not args.skip_kernel_bench:
-        t_ddot1, t_wax1, t_spmv1 = _kernel_bench(prob, backend_used, device)
+        bench = _kernel_bench if mesh is None else _kernel_bench_distributed
+        t_ddot1, t_wax1, t_spmv1 = bench(prob, backend_used, device) if mesh is None else bench(
+            prob, backend_used, device, mesh, cfg)
         t_ddot = t_ddot1 * 2 * fniters
-        t_waxpby = t_wax1 * (1 if backend_used == "pallas_fused" else 3) * fniters
+        t_waxpby = t_wax1 * (1 if backend_used.endswith("pallas_fused") else 3) * fniters
         t_spmv = t_spmv1 * fniters
 
     # --- report (main.cpp:230-304 schema, the JAX package's keys) ---
     doc = Report("hpccg-tpu-torch", "1.0")
     par = doc.add("Parallelism")
-    par.add("Number of mesh devices", 1)
-    par.add("Mesh axes", "(single device)")
+    par.add("Number of mesh devices", ndev)
+    par.add("Mesh axes", "(single device)" if mesh is None else "z")
     par.add("Device kind", torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu")
     par.add("Platform", "gpu" if device.type == "cuda" else "cpu")
-    par.add("MPI not enabled (single device)", "")
+    par.add("MPI not enabled (single device)" if mesh is None
+            else "MPI not enabled (single-controller mesh: halo copies and rank-order sums)", "")
 
     dims = doc.add("Dimensions")
     dims.add("nx", nx)
     dims.add("ny", ny)
     dims.add("nz", nz)
+    if mesh is not None:
+        dims.add("global nz", nz * ndev)
     dims.add("stencil", args.stencil)
     dims.add("dtype", args.dtype)
 
@@ -313,13 +418,16 @@ def main(argv=None) -> int:
     ts.add("WAXPBY  ", t_waxpby)
     ts.add("SPARSEMV", t_spmv)
     fused_note = ""
-    if backend_used == "pallas_fused":
+    if backend_used in ("pallas_fused", "distributed:pallas_fused"):
         fused_note = "; WAXPBY times K4 (x/r update fused with r.r) once per iteration and DDOT is fused into K3/K4"
-    elif backend_used in WHOLE_SOLVE_BACKENDS:
+    elif backend_used in (*WHOLE_SOLVE_BACKENDS, "distributed:collective"):
         fused_note = "; DDOT and WAXPBY are fused into the whole-solve kernel (one launch per solve)"
     if dtype == torch.bfloat16:
         fused_note += "; SPARSEMV is empty: K1 has no bfloat16 instance yet"
-    if not file_mode:
+    if mesh is not None:
+        spmv_note = ("the plain halo'd matvec" if backend_used == "distributed:stencil"
+                     else "the K1 stencil kernel with halo planes") + f" on {ndev} ranks"
+    elif not file_mode:
         spmv_note = "the K1 stencil kernel"
     elif backend_used == "stencil":
         spmv_note = f"the plain {type(prob.A).__name__} matvec"

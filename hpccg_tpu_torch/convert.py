@@ -11,6 +11,12 @@ bfloat16. Such an array is widened exactly to float32 and narrowed again
 by torch (``.to(torch.bfloat16)``), which gives back the same bits. Going
 back, a bf16 tensor becomes an ``ml_dtypes`` bfloat16 array the same way
 (``ml_dtypes`` is imported only then).
+
+Sharded state: a JAX array sharded over a mesh is handed over as its global
+numpy array (``np.asarray``); ``shards_from_numpy`` cuts it into the port's
+per-rank tuple on a ``parallel.mesh.Mesh`` and ``shards_to_numpy`` joins the
+tuple again. A distributed CGResult (x sharded) converts both ways with
+``result_from_numpy(..., mesh=)`` and ``result_to_numpy``.
 """
 
 from __future__ import annotations
@@ -74,12 +80,24 @@ def problem_to_numpy(prob: Problem) -> dict:
     }
 
 
-def result_from_numpy(x, niters, normr, rtrans, trace, *, device) -> CGResult:
+def shards_from_numpy(a, mesh) -> tuple:
+    """A global flat numpy array (a sharded JAX array's ``np.asarray``) ->
+    the port's per-rank shards on ``mesh``."""
+    return mesh.shard(_tensor(a, "cpu"))
+
+
+def shards_to_numpy(parts) -> np.ndarray:
+    """Per-rank shards -> the global flat numpy array, in rank order."""
+    return np.concatenate([_numpy(p).reshape(-1) for p in parts])
+
+
+def result_from_numpy(x, niters, normr, rtrans, trace, *, device, mesh=None) -> CGResult:
     """A CGResult on ``device`` from numpy arrays (e.g. a JAX CGResult's).
     Each array keeps its own dtype: a bf16 solve has bf16 ``x`` and float32
-    ``normr``, ``rtrans`` and ``trace``."""
+    ``normr``, ``rtrans`` and ``trace``. With ``mesh``, x (global) is
+    sharded over it, as a distributed solve returns it."""
     return CGResult(
-        x=_tensor(x, device),
+        x=_tensor(x, device) if mesh is None else shards_from_numpy(x, mesh),
         niters=_tensor(niters, device, torch.int32),
         normr=_tensor(normr, device),
         rtrans=_tensor(rtrans, device),
@@ -88,7 +106,11 @@ def result_from_numpy(x, niters, normr, rtrans, trace, *, device) -> CGResult:
 
 
 def result_to_numpy(res: CGResult) -> dict:
-    return {name: _numpy(getattr(res, name)) for name in ("x", "niters", "normr", "rtrans", "trace")}
+    """The result's arrays; a sharded x (a distributed solve's) joined into
+    the global array."""
+    out = {name: _numpy(getattr(res, name)) for name in ("niters", "normr", "rtrans", "trace")}
+    out["x"] = _numpy(res.x) if isinstance(res.x, torch.Tensor) else shards_to_numpy(res.x)
+    return out
 
 
 def ell_from_numpy(vals, cols, valid, start_row=0, total_nrow=None, *, device) -> EllMatrix:

@@ -38,7 +38,7 @@ def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
 
 
 def read_hpc_row(path: str, *, dtype=torch.float64, to_dia: bool = True,
-                 device="cpu") -> Tuple[Problem, torch.Tensor]:
+                 device="cuda") -> Tuple[Problem, torch.Tensor]:
     """Load an HPC-row file into an explicit-matrix Problem on ``device``.
 
     Returns (problem, x_file): the file carries an initial guess x beside b
@@ -84,7 +84,7 @@ def read_hpc_row(path: str, *, dtype=torch.float64, to_dia: bool = True,
 
 
 def read_hpc_row_structured(path: str, *, dtype=torch.float64, max_diags: int = 4096,
-                            max_inflation: float = 64.0, reorder: bool = True, device="cpu"):
+                            max_inflation: float = 64.0, reorder: bool = True, device="cuda"):
     """Load an HPC-row file and pick the representation it solves in
     (``reorder.auto_structure``).
 
@@ -94,7 +94,7 @@ def read_hpc_row_structured(path: str, *, dtype=torch.float64, max_diags: int = 
     (:func:`unpermute`). ``reorder=False`` (the CLI's ``--no-reorder``)
     disables RCM but keeps the direct DIA conversion under the same budgets.
     """
-    prob, _ = read_hpc_row(path, dtype=dtype, to_dia=False)
+    prob, _ = read_hpc_row(path, dtype=dtype, to_dia=False, device="cpu")  # analysed on the host
     A = prob.A
     max_storage = 8 << 30
     if reorder:

@@ -57,6 +57,11 @@ _SIGNATURES = {
     "hpccg_dia_f64": [_P, _P, _I, _P, _P, _LL, _P],
     "hpccg_ell_f32": [_P, _P, _I, _P, _P, _LL, _P],
     "hpccg_ell_f64": [_P, _P, _I, _P, _P, _LL, _P],
+    "hpccg_collective_resident_blocks": [_I] * 3,
+    "hpccg_collective_work_items": [_I] * 3,
+    "hpccg_collective_layout": [_I],
+    "hpccg_collective_f32": [_P] * 4 + [_I] * 8 + [ctypes.c_double, _LL, _P],
+    "hpccg_collective_f64": [_P] * 4 + [_I] * 8 + [ctypes.c_double, _LL, _P],
 }
 
 

@@ -1,0 +1,192 @@
+"""The collective whole-solve kernels K15 and K16 (``csrc/collective.cu``):
+wrappers, plain versions and launch counters.
+
+- K15 ``cg_collective``: methods ``cg`` (the reference recurrence, two
+  allreduces per iteration) and ``cg1`` (Chronopoulos-Gear, one)
+  (``collective_kernel.py:_kernel``);
+- K16 ``cg_collective_pipelined``: pipelined CG (Ghysels-Vanroose), the
+  allreduce in flight while the stencil applies
+  (``collective_kernel.py:_kernel_pipelined``).
+
+Each solves the z-stacked stencil problem of every rank of a mesh in one
+launch. ``b`` and ``x0`` are sharded vectors: tuples of flat per-rank
+tensors (rank r's block of ``op``'s local dims), as
+``parallel.cg.generate_problem_sharded`` gives them. The result is a
+CGResult whose x is sharded the same way.
+
+The plain version is the sharded recurrence of ``parallel.cg`` with
+backend ``stencil``: the halo'd plain matvec, the ranks' partials summed in
+rank order. A wrapper runs it only when the shards lie on the CPU; for
+CUDA shards it launches the kernel or raises, and counts its launches in
+``<wrapper>.launches``. Every rank of a launch must share one card: a mesh
+across cards raises NotImplementedError (the multi-card launch, with peer
+pointer tables, is queued in ROADMAP). float32 and float64 only: bfloat16
+raises ValueError (the JAX kernels' allreduce rows are in the vector dtype,
+and the JAX package makes no bfloat16 claim for them).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from hpccg_tpu_torch.operators import StencilOperator
+from hpccg_tpu_torch.ops.cuda.build import check_launch, load_library
+
+METHODS = {"cg": 0, "cg1": 1, "pipecg": 2}
+# rows of the kernel's pointer table; the same order as csrc/collective.cu
+(P_B, P_X0, P_X, P_R, P_P, P_S, P_U, P_Z, P_Q, P_H, P_PARTS, P_TABLE, P_CTR) = range(13)
+NKIND, NCTR = 13, 16
+VECTORS = {"cg": (P_X, P_R, P_P, P_S), "cg1": (P_X, P_R, P_P, P_S, P_U),
+           "pipecg": (P_X, P_R, P_P, P_S, P_U, P_Z, P_Q)}
+# how long a spin-wait in the kernel may last before it gives up: far above
+# any wait of a healthy solve, far below a hung chip_smoke
+WAIT_NS = 5_000_000_000
+# error-word sites (csrc/collective.cu)
+SITES = {1: "rank barrier", 2: "rank partials", 3: "allreduce table"}
+
+
+def _check(op: StencilOperator, bs, x0s) -> torch.device:
+    """Raise unless (bs, x0s) are what the kernel takes; returns their one
+    device."""
+    bs, x0s = tuple(bs), tuple(x0s)
+    if not bs or len(bs) != len(x0s):
+        raise ValueError(f"b has {len(bs)} shards and x0 {len(x0s)}")
+    dtype = bs[0].dtype
+    if dtype == torch.bfloat16:
+        raise ValueError("the collective kernels take float32 or float64; bfloat16 has no instance "
+                         "(the JAX kernels' allreduce rows are in the vector dtype)")
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the collective kernels take float32 or float64, got {dtype}")
+    for v in bs + x0s:
+        if v.dtype != dtype or tuple(v.shape) != (op.local_nrow,) or not v.is_contiguous():
+            raise ValueError(f"every shard must be a contiguous ({op.local_nrow},) {dtype} tensor, got "
+                             f"{tuple(v.shape)} {v.dtype}")
+    devices = {v.device for v in bs + x0s}
+    if len(devices) > 1:
+        if all(d.type == "cuda" for d in devices):
+            raise NotImplementedError("the collective kernels run every rank of a launch on one card; the "
+                                      "multi-card launch (peer pointer tables) is queued in ROADMAP")
+        raise ValueError(f"the shards lie on several devices: {sorted(map(str, devices))}")
+    if any(b.data_ptr() == x.data_ptr() for b in bs for x in x0s):
+        raise ValueError("b and x0 must not alias")
+    return devices.pop()
+
+
+def solve_plain(op: StencilOperator, bs, x0s, *, method: str, max_iter: int, tolerance: float = 0.0):
+    """Plain torch K15/K16: the sharded recurrence of ``method`` with the
+    plain halo'd matvec (``make_distributed_cg(backend="stencil")``)."""
+    from hpccg_tpu_torch.ops.cuda.fused_cg import cg_finalize_plain
+    from hpccg_tpu_torch.parallel.halo import stencil_matvec_halo
+    from hpccg_tpu_torch.solver import ONE_REDUCTION, cg_solve
+
+    def matvec(vs):
+        return stencil_matvec_halo(op, vs)
+
+    bs, x0s = tuple(bs), tuple(x0s)
+    if method == "cg":
+        return cg_solve(matvec, bs, x0s, max_iter=max_iter, tolerance=tolerance, finalize=cg_finalize_plain)
+    return ONE_REDUCTION[method](matvec, bs, x0s, max_iter=max_iter, tolerance=tolerance)
+
+
+def work_items(op: StencilOperator) -> int:
+    """(x-tile, y-tile, z-chunk) work items of one rank's block; the rank's
+    blocks take them in turns."""
+    return load_library().hpccg_collective_work_items(op.nx, op.ny, op.nz)
+
+
+def blocks_per_rank(op: StencilOperator, ndev: int, dtype, method: str) -> int:
+    """Blocks of each rank in the launch: the rank's work items, capped by
+    the card's resident blocks shared among ``ndev`` ranks. A mesh larger
+    than the resident grid raises (nothing falls back)."""
+    lib = load_library()
+    if (lib.hpccg_collective_layout(0), lib.hpccg_collective_layout(1)) != (NCTR, NKIND):
+        raise RuntimeError("collective kernel: the library's counter / pointer layout differs from this module's")
+    resident = lib.hpccg_collective_resident_blocks(0 if dtype == torch.float32 else 1, op.stencil.value,
+                                                    METHODS[method])
+    if resident <= 0:
+        raise RuntimeError(f"collective kernel: no cooperative grid (CUDA error {-resident})")
+    if resident < ndev:
+        raise ValueError(f"a mesh of {ndev} ranks needs at least {ndev} resident blocks; this card holds "
+                         f"{resident} of the collective kernel")
+    return min(work_items(op), resident // ndev)
+
+
+def launch(op: StencilOperator, bs, x0s, *, method: str, max_iter: int, tolerance: float = 0.0,
+           wait_ns: int = WAIT_NS):
+    """One cooperative launch of the collective kernel for every rank, on
+    the shards' card and the current stream; synchronises to read the
+    kernel's error word and raises RuntimeError if a wait gave up. Returns
+    a CGResult."""
+    from hpccg_tpu_torch.solver import CGResult
+
+    dev = bs[0].device
+    dtype = bs[0].dtype
+    ndev = len(bs)
+    bpr = blocks_per_rank(op, ndev, dtype, method)
+    kinds = VECTORS[method]
+    state = torch.zeros((len(kinds), ndev, op.local_nrow), dtype=dtype, device=dev)
+    # the (phase, from below / from above) planes a rank's neighbours push into; zero at the global ends
+    landing = torch.zeros((ndev, 5, 2, op.ny, op.nx), dtype=dtype, device=dev)
+    parts = torch.empty((ndev, 2 * bpr), dtype=dtype, device=dev)
+    table = torch.zeros((ndev, 2, ndev, 2), dtype=dtype, device=dev)
+    ctr = torch.zeros((ndev, NCTR), dtype=torch.int32, device=dev)
+    trace = torch.full((max(max_iter, 1),), float("nan"), dtype=dtype, device=dev)
+    stats = torch.zeros((4,), dtype=dtype, device=dev)
+    err = torch.zeros((4,), dtype=torch.int32, device=dev)
+    rows = [[0] * ndev for _ in range(NKIND)]
+    for r in range(ndev):
+        rows[P_B][r], rows[P_X0][r] = bs[r].data_ptr(), x0s[r].data_ptr()
+        for j, kind in enumerate(kinds):
+            rows[kind][r] = state[j, r].data_ptr()
+        rows[P_H][r] = landing[r].data_ptr()
+        rows[P_PARTS][r] = parts[r].data_ptr()
+        rows[P_TABLE][r] = table[r].data_ptr()
+        rows[P_CTR][r] = ctr[r].data_ptr()
+    ptrs = torch.tensor(rows, dtype=torch.int64, device=dev)
+    lib = load_library()
+    fn = lib.hpccg_collective_f32 if dtype == torch.float32 else lib.hpccg_collective_f64
+    # the C entry points launch on the current device, which must be the stream's
+    with torch.cuda.device(dev):
+        code = fn(ptrs.data_ptr(), trace.data_ptr(), stats.data_ptr(), err.data_ptr(), ndev, bpr, op.nx, op.ny,
+                  op.nz, op.stencil.value, METHODS[method], max_iter, float(tolerance), int(wait_ns),
+                  torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(code, "collective kernel (cooperative launch)")
+    word = err.tolist()
+    if word[0]:
+        site = word[1]
+        what = SITES.get(site) or f"halo of phase {(site - 16) // 2} from {'above' if site % 2 else 'below'}"
+        raise RuntimeError(f"collective kernel: a wait gave up after {wait_ns} ns ({what}, rank {word[2]}, "
+                           f"expected count {word[3]}); {ndev} ranks x {bpr} blocks")
+    x = tuple(state[0, r] for r in range(ndev))  # kinds[0] is P_X
+    return CGResult(x=x, niters=stats[2].to(torch.int32), normr=stats[0], rtrans=stats[1], trace=trace)
+
+
+def _solve(wrapper, op, bs, x0s, method, max_iter, tolerance):
+    if method not in METHODS:
+        raise ValueError(f"unknown CG method {method!r}")
+    dev = _check(op, bs, x0s)
+    if dev.type == "cpu":
+        return solve_plain(op, bs, x0s, method=method, max_iter=max_iter, tolerance=tolerance)
+    res = launch(op, tuple(bs), tuple(x0s), method=method, max_iter=max_iter, tolerance=tolerance)
+    wrapper.launches += 1
+    return res
+
+
+def cg_collective(op: StencilOperator, bs, x0s, *, method: str = "cg1", max_iter: int, tolerance: float = 0.0):
+    """K15: the whole multi-rank solve in one launch, method ``cg`` or
+    ``cg1`` (plain on the CPU). Returns a CGResult with sharded x."""
+    if method not in ("cg", "cg1"):
+        raise ValueError(f"K15 runs methods cg and cg1, got {method!r} (pipecg is K16)")
+    return _solve(cg_collective, op, bs, x0s, method, max_iter, tolerance)
+
+
+cg_collective.launches = 0
+
+
+def cg_collective_pipelined(op: StencilOperator, bs, x0s, *, max_iter: int, tolerance: float = 0.0):
+    """K16: the whole multi-rank pipelined CG solve in one launch (plain on
+    the CPU). Returns a CGResult with sharded x."""
+    return _solve(cg_collective_pipelined, op, bs, x0s, "pipecg", max_iter, tolerance)
+
+
+cg_collective_pipelined.launches = 0

@@ -73,8 +73,10 @@ def spmv_dia(P: PreparedDia, x: torch.Tensor, *, out=None) -> torch.Tensor:
         raise ValueError("out must not alias x: rows read x at shifted positions")
     lib = load_library()
     fn = lib.hpccg_dia_f32 if x.dtype == torch.float32 else lib.hpccg_dia_f64
-    err = fn(A.data.data_ptr(), P.offsets.data_ptr(), A.ndiag, x.data_ptr(), out.data_ptr(), n,
-             torch.cuda.current_stream(x.device).cuda_stream)
+    # the C entry points launch on the current device, which must be the stream's
+    with torch.cuda.device(x.device):
+        err = fn(A.data.data_ptr(), P.offsets.data_ptr(), A.ndiag, x.data_ptr(), out.data_ptr(), n,
+                 torch.cuda.current_stream(x.device).cuda_stream)
     check_launch(err, "DIA kernel")
     if x.dtype == torch.float32:
         spmv_dia.launches_f32 += 1

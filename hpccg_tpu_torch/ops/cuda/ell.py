@@ -81,8 +81,10 @@ def spmv_ell(S: EllSlots, x: torch.Tensor, *, out=None) -> torch.Tensor:
         raise ValueError("out must not alias x: rows gather from every part of x")
     lib = load_library()
     fn = lib.hpccg_ell_f32 if x.dtype == torch.float32 else lib.hpccg_ell_f64
-    err = fn(S.vals.data_ptr(), S.cols.data_ptr(), S.width, x.data_ptr(), out.data_ptr(), n,
-             torch.cuda.current_stream(x.device).cuda_stream)
+    # the C entry points launch on the current device, which must be the stream's
+    with torch.cuda.device(x.device):
+        err = fn(S.vals.data_ptr(), S.cols.data_ptr(), S.width, x.data_ptr(), out.data_ptr(), n,
+                 torch.cuda.current_stream(x.device).cuda_stream)
     check_launch(err, "ELL kernel")
     if x.dtype == torch.float32:
         spmv_ell.launches_f32 += 1

@@ -110,8 +110,10 @@ def update_x_r(x, r, p, ap, alpha, *, partials=None, active=None):
         return update_x_r_plain(x, r, p, ap, alpha, partials=partials, active=active)
     lib = load_library()
     fn = lib.hpccg_update_x_r_f32 if x.dtype == torch.float32 else lib.hpccg_update_x_r_f64
-    err = fn(x.data_ptr(), r.data_ptr(), p.data_ptr(), ap.data_ptr(), alpha.data_ptr(),
-             partials.data_ptr(), None if active is None else active.data_ptr(), n, _stream(x))
+    # the C entry points launch on the current device, which must be the stream's
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), r.data_ptr(), p.data_ptr(), ap.data_ptr(), alpha.data_ptr(),
+                 partials.data_ptr(), None if active is None else active.data_ptr(), n, _stream(x))
     check_launch(err, "update_x_r kernel")
     update_x_r.launches += 1
     return x, r, partials
@@ -179,8 +181,10 @@ def cg_finalize(partials, st: CGScalars, step: int) -> None:
         return cg_finalize_plain(partials, st, step)
     lib = load_library()
     fn = lib.hpccg_finalize_f32 if st.sc.dtype == torch.float32 else lib.hpccg_finalize_f64
-    err = fn(partials.data_ptr(), partials.numel(), st.sc.data_ptr(), st.ic.data_ptr(),
-             st.trace.data_ptr(), step, _stream(st.sc))
+    # the C entry points launch on the current device, which must be the stream's
+    with torch.cuda.device(st.sc.device):
+        err = fn(partials.data_ptr(), partials.numel(), st.sc.data_ptr(), st.ic.data_ptr(),
+                 st.trace.data_ptr(), step, _stream(st.sc))
     check_launch(err, "finalize kernel")
     cg_finalize.launches += 1
 

@@ -73,12 +73,14 @@ def _launch(op, u, v, beta, halo_u, halo_v, out_p, out_y, partials, active, fuse
     fn = lib.hpccg_stencil_f32 if u.dtype == torch.float32 else lib.hpccg_stencil_f64
     hb_u, ha_u = (None, None) if halo_u is None else (halo_u[0], halo_u[1])
     hb_v, ha_v = (None, None) if halo_v is None else (halo_v[0], halo_v[1])
-    err = fn(
-        _ptr(u), _ptr(v), _ptr(beta), _ptr(hb_u), _ptr(ha_u), _ptr(hb_v), _ptr(ha_v),
-        _ptr(out_p), _ptr(out_y), _ptr(partials), _ptr(active),
-        op.nx, op.ny, op.nz, op.stencil.value, int(fuse_p), int(pap),
-        torch.cuda.current_stream(u.device).cuda_stream,
-    )
+    # the C entry points launch on the current device, which must be the stream's
+    with torch.cuda.device(u.device):
+        err = fn(
+            _ptr(u), _ptr(v), _ptr(beta), _ptr(hb_u), _ptr(ha_u), _ptr(hb_v), _ptr(ha_v),
+            _ptr(out_p), _ptr(out_y), _ptr(partials), _ptr(active),
+            op.nx, op.ny, op.nz, op.stencil.value, int(fuse_p), int(pap),
+            torch.cuda.current_stream(u.device).cuda_stream,
+        )
     check_launch(err, "stencil kernel")
 
 

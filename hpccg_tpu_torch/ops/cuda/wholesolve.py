@@ -107,11 +107,13 @@ def launch(op: StencilOperator, b, x0, *, max_iter: int, tolerance: float, recom
     lib = load_library()
     fn = {torch.float32: lib.hpccg_wholesolve_f32, torch.float64: lib.hpccg_wholesolve_f64,
           torch.bfloat16: lib.hpccg_wholesolve_bf16}[b.dtype]
-    err = fn(b.data_ptr(), x0.data_ptr(), x.data_ptr(), r.data_ptr(), p0.data_ptr(), p1.data_ptr(),
-             None if ap is None else ap.data_ptr(), parts.data_ptr(), parts.numel(),
-             st.sc.data_ptr(), st.ic.data_ptr(), st.trace.data_ptr(),
-             op.nx, op.ny, op.nz, op.stencil.value, int(recompute_ap),
-             torch.cuda.current_stream(b.device).cuda_stream)
+    # the C entry points launch on the current device, which must be the stream's
+    with torch.cuda.device(b.device):
+        err = fn(b.data_ptr(), x0.data_ptr(), x.data_ptr(), r.data_ptr(), p0.data_ptr(), p1.data_ptr(),
+                 None if ap is None else ap.data_ptr(), parts.data_ptr(), parts.numel(),
+                 st.sc.data_ptr(), st.ic.data_ptr(), st.trace.data_ptr(),
+                 op.nx, op.ny, op.nz, op.stencil.value, int(recompute_ap),
+                 torch.cuda.current_stream(b.device).cuda_stream)
     check_launch(err, "whole-solve kernel (cooperative launch)")
     return x, st
 

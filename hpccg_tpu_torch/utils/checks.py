@@ -52,11 +52,13 @@ def validate_problem(prob, *, rtol: float = 1e-6) -> dict:
 
 def check_finite(res) -> None:
     """Fail fast if a CGResult carries NaN/Inf (exact convergence under
-    tolerance=0 yields alpha = 0/0, faithful to the reference recurrence)."""
+    tolerance=0 yields alpha = 0/0, faithful to the reference recurrence).
+    A distributed result's x is a tuple of shards."""
     normr = float(res.normr)
     if not np.isfinite(normr):
         raise ValidationError(
             f"solve diverged or over-converged: normr = {normr} after {int(res.niters)} iterations"
         )
-    if not bool(torch.isfinite(res.x).all()):
+    shards = (res.x,) if isinstance(res.x, torch.Tensor) else res.x
+    if not all(bool(torch.isfinite(x).all()) for x in shards):
         raise ValidationError("solution vector contains non-finite values")

@@ -69,11 +69,14 @@ def test_backends_and_kernel_bench(backend):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--backend", "ell"], ["--mesh", "2"], ["--method", "cg1"], ["--method", "pipecg"],
-    ["--refine", "2"], ["--backend", "dia"], ["--backend", "collective"], ["--stream-load"],
-    ["--dump-matlab", "mat"],
+    ["--backend", "ell"], ["--mesh", "2x4"], ["--mesh", "4x1"], ["--backend", "ell", "--mesh", "2"],
+    ["--stream-load", "--mesh", "2"], ["--backend", "dia"], ["--dump-matlab", "mat", "--mesh", "2"],
+    ["--stream-load"], ["--dump-matlab", "mat"],
 ])
 def test_not_yet_ported_flags_exit_2(extra, capsys):
+    """What waits for a later slice exits 2 and says so (--mesh N, --method,
+    --rr-every, --refine and --backend collective are ported:
+    tests/test_torch_distributed.py, tests/test_torch_methods.py)."""
     assert main(["4", "4", "4", "--device", "cpu"] + extra) == 2
     assert "not yet ported" in capsys.readouterr().err
 

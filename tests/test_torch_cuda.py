@@ -19,6 +19,7 @@ limits are about twice the largest readings on an H100 (chip_smoke.py).
 """
 
 import dataclasses
+import warnings
 
 import pytest
 
@@ -145,7 +146,7 @@ WS_TRACE = {torch.float64: (1e-10, 1e-11), torch.float32: (1e-4, 1e-5), torch.bf
 WS_X_RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 
 
-def _x_close(got, want):
+def _x_close(got, want, rtol=None):
     if got.dtype == torch.bfloat16:
         def ordered(t):  # bf16 bits as integers in the order of the values
             v = t.view(torch.int16).to(torch.int32)
@@ -154,7 +155,8 @@ def _x_close(got, want):
         assert int((ordered(got) - ordered(want)).abs().max()) <= 4
         assert float((got != want).double().mean()) <= 1e-3
     else:
-        assert float((got - want).abs().max()) <= WS_X_RTOL[got.dtype] * float(want.abs().max())
+        rtol = WS_X_RTOL[got.dtype] if rtol is None else rtol
+        assert float((got - want).abs().max()) <= rtol * float(want.abs().max())
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16])
@@ -308,3 +310,146 @@ def test_explicit_solve_runs_its_kernel(cuda_device, fmt, dtype):
     bf16 = generate_ell(ProblemConfig(6, 5, 4, dtype=torch.bfloat16), cuda_device).A
     with pytest.raises(ValueError, match="bfloat16"):
         make_cg(bf16 if fmt == "ell" else bf16.to_dia())
+
+
+# ------------------------------------------- collective whole solves, K15/K16
+
+from hpccg_tpu_torch.ops.cuda import collective as col  # noqa: E402
+from hpccg_tpu_torch.parallel import generate_problem_sharded, make_distributed_cg, make_mesh  # noqa: E402
+
+
+def _sharded(cuda_device, ndev, dims, dtype, stencil=27):
+    cfg = ProblemConfig(*dims, stencil=stencil, dtype=dtype)
+    return cfg, generate_problem_sharded(cfg, make_mesh(ndev, devices=[cuda_device] * ndev))
+
+
+# pipecg against another run of pipecg: (trace rtol, floor) and x. Its
+# w = A r and z = A s recurrences carry each run's rounding forward, and the
+# traces part faster than cg's; the limits of chip_smoke.py (readings on an
+# H100: f64 4.4e-8 near 3e-10 of trace[0], single device, K1 against the
+# plain matvec; f32 2.8e-3 above 1e-4 of trace[0], x 8.7e-5).
+PIPE_TRACE = {torch.float64: (1e-6, 1e-9), torch.float32: (1e-2, 1e-4)}
+PIPE_X_RTOL = {torch.float64: 1e-12, torch.float32: 2e-3}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("method", ["cg", "cg1", "pipecg"])
+@pytest.mark.parametrize("ndev", [1, 4])
+def test_collective_matches_plain(cuda_device, ndev, method, dtype):
+    """K15 (cg, cg1) and K16 (pipecg) against their plain versions with
+    every rank on one card: niters equal, the trace within WS_TRACE above
+    its floor (the solve stops there, as in test_whole_solve_matches_plain),
+    x within WS_X_RTOL, one launch per solve, two solves bit-identical.
+    pipecg's recurrences drift from each other faster (the JAX package holds
+    its pipelined kernel to 1e-8 above 1e-8 of trace[0]): PIPE_TRACE
+    (measured on an H100: f64 parts by 6.1e-10 at k = 29 on one rank)."""
+    cfg, prob = _sharded(cuda_device, ndev, (33, 17, 9), dtype)
+    op = StencilOperator(33, 17, 9, dtype=dtype)
+    kern = col.cg_collective_pipelined if method == "pipecg" else col.cg_collective
+    kw = {} if method == "pipecg" else {"method": method}
+    rtol, floor = (PIPE_TRACE if method == "pipecg" else WS_TRACE)[dtype]
+    tr = col.solve_plain(op, prob.b, prob.x0, method=method, max_iter=30).trace
+    below = torch.nonzero(tr < floor * tr[0])
+    tol = 0.0 if below.numel() == 0 else float(torch.sqrt(tr[int(below[0]) - 1] * tr[int(below[0])]))
+    want = col.solve_plain(op, prob.b, prob.x0, method=method, max_iter=30, tolerance=tol)
+    before = kern.launches
+    got, again = (kern(op, prob.b, prob.x0, max_iter=30, tolerance=tol, **kw) for _ in range(2))
+    torch.cuda.synchronize()
+    assert kern.launches == before + 2
+    n = int(want.niters) + 1
+    assert int(got.niters) == n - 1
+    torch.testing.assert_close(got.trace[:n], want.trace[:n], rtol=rtol, atol=0)
+    assert bool(torch.isnan(got.trace[n:]).all())
+    _x_close(torch.cat(got.x), torch.cat(want.x), PIPE_X_RTOL[dtype] if method == "pipecg" else None)
+    assert all(torch.equal(a, b) for a, b in zip(got.x, again.x)) and torch.equal(got.trace[:n], again.trace[:n])
+
+
+def test_collective_backend_matches_stencil_golden(cuda_device):
+    """make_distributed_cg(backend="collective") on two ranks of one card:
+    the global 10^3 f64 problem, 149 iterations, the golden trace."""
+    cfg, prob = _sharded(cuda_device, 2, (10, 10, 5), torch.float64)
+    mesh = make_mesh(2, devices=[cuda_device] * 2)
+    res = make_distributed_cg(cfg, mesh, max_iter=150, backend="collective", method="cg")(prob.b, prob.x0)
+    assert int(res.niters) == 149
+    torch.testing.assert_close(res.trace[0], torch.tensor(258.24, dtype=torch.float64, device=cuda_device),
+                               rtol=1e-5, atol=0)
+    torch.testing.assert_close(res.trace[15], torch.tensor(2.15402e-06, dtype=torch.float64, device=cuda_device),
+                               rtol=1e-4, atol=0)
+
+
+def test_collective_bounded_wait_raises(cuda_device):
+    """A 2-rank launch whose waits may last 0 ns gives up at the first wait
+    that is not already met: RuntimeError with the error word, no hang."""
+    _, prob = _sharded(cuda_device, 2, (33, 17, 9), torch.float32)
+    op = StencilOperator(33, 17, 9, dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="gave up after 0 ns"):
+        col.launch(op, prob.b, prob.x0, method="cg1", max_iter=30, wait_ns=0)
+    torch.cuda.synchronize()
+    # the card is still usable
+    res = col.cg_collective(op, prob.b, prob.x0, method="cg1", max_iter=5)
+    assert int(res.niters) == 4
+
+
+def test_collective_refuses_bf16_and_several_cards(cuda_device):
+    _, prob = _sharded(cuda_device, 2, (6, 5, 4), torch.float32)
+    op = StencilOperator(6, 5, 4, dtype=torch.bfloat16)
+    bf = tuple(v.to(torch.bfloat16) for v in prob.b)
+    with pytest.raises(ValueError, match="bfloat16"):
+        col.cg_collective(op, bf, bf, max_iter=5)
+    if torch.cuda.device_count() > 1:
+        other = (prob.b[0], prob.b[1].to("cuda:1"))
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            col.cg_collective(StencilOperator(6, 5, 4, dtype=torch.float32), other, other, max_iter=5)
+
+
+@pytest.mark.parametrize("backend", ["pallas", "pallas_dd", "pallas_v1", "pallas_fused"])
+@pytest.mark.parametrize("method", ["cg", "cg1", "pipecg"])
+def test_distributed_kernel_backends_match_stencil(cuda_device, backend, method):
+    """The per-iteration kernel backends on four ranks of one card against
+    the distributed stencil backend, f64, a tolerance exit."""
+    cfg, prob = _sharded(cuda_device, 4, (12, 10, 3), torch.float64)
+    mesh = make_mesh(4, devices=[cuda_device] * 4)
+    kw = dict(max_iter=500, tolerance=1e-10, method=method)
+    ref = make_distributed_cg(cfg, mesh, backend="stencil", **kw)(prob.b, prob.x0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # pallas_fused with cg1/pipecg warns and runs pallas
+        res = make_distributed_cg(cfg, mesh, backend=backend, **kw)(prob.b, prob.x0)
+    assert int(res.niters) == int(ref.niters) < 499
+    rtol, floor = PIPE_TRACE[torch.float64] if method == "pipecg" else (1e-9, 1e-9)
+    head = ref.trace > floor * ref.trace[0]
+    torch.testing.assert_close(res.trace[head], ref.trace[head], rtol=rtol, atol=0)
+    torch.testing.assert_close(torch.cat(res.x), torch.cat(ref.x), rtol=1e-10, atol=0)
+
+
+@pytest.mark.parametrize("method", ["cg1", "pipecg"])
+def test_one_reduction_methods_on_the_card(cuda_device, method):
+    """Single-device cg1/pipecg on K1 (pallas) against stencil, f64."""
+    prob = generate_problem(ProblemConfig(12, 10, 9), cuda_device)
+    ref = make_cg(prob.A, max_iter=500, tolerance=1e-10, backend="stencil", method=method)(prob.b, prob.x0)
+    before = st.spmv_stencil.launches
+    res = make_cg(prob.A, max_iter=500, tolerance=1e-10, backend="pallas", method=method)(prob.b, prob.x0)
+    torch.cuda.synchronize()
+    assert st.spmv_stencil.launches > before
+    assert int(res.niters) == int(ref.niters) < 499
+    rtol, floor = PIPE_TRACE[torch.float64] if method == "pipecg" else (1e-9, 1e-9)
+    head = ref.trace > floor * ref.trace[0]
+    torch.testing.assert_close(res.trace[head], ref.trace[head], rtol=rtol, atol=0)
+
+
+def test_distributed_backends_across_cards(cuda_device):
+    """One rank per card (needs two or more): the kernel wrappers launch on
+    their tensors' card (a launch on the current card with another card's
+    stream failed before), and collective refuses a mesh across cards."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more NVIDIA GPUs")
+    cfg = ProblemConfig(12, 10, 3)
+    mesh = make_mesh(n)
+    prob = generate_problem_sharded(cfg, mesh)
+    ref = make_distributed_cg(cfg, mesh, max_iter=500, tolerance=1e-10, backend="stencil")(prob.b, prob.x0)
+    for backend in ("pallas", "pallas_dd", "pallas_fused"):
+        res = make_distributed_cg(cfg, mesh, max_iter=500, tolerance=1e-10, backend=backend)(prob.b, prob.x0)
+        assert int(res.niters) == int(ref.niters) < 499
+        assert [x.device for x in res.x] == list(mesh.devices)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_distributed_cg(cfg, mesh, max_iter=5, backend="collective")(prob.b, prob.x0)

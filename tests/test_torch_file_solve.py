@@ -69,7 +69,7 @@ def _golden_checks(trace, niters):
 ])
 def test_file_trajectory_matches_jax(tmp_path, dtype, case, want):
     path = _write(tmp_path / "m.txt", (9, 8, 7), dtype, None if case == "banded" else 11)
-    prob, perm, report = tio.read_hpc_row_structured(path, dtype=getattr(torch, dtype))
+    prob, perm, report = tio.read_hpc_row_structured(path, dtype=getattr(torch, dtype), device="cpu")
     assert report.format == want
     # allow_gell=False: the TPU gather tiers would run in interpret mode here
     jprob, jperm, _ = jio.read_hpc_row_structured(path, dtype=getattr(jnp, dtype), allow_gell=False)

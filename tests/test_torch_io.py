@@ -79,7 +79,7 @@ def test_port_writer_is_read_by_jax(tmp_path, case, dtype):
         _same(got, want)
     for got, want in ((x, jx), (prob.b, jprob.b), (prob.xexact, jprob.xexact)):
         _same(got, want)
-    port, px = tio.read_hpc_row(path, dtype=getattr(torch, dtype), to_dia=False)
+    port, px = tio.read_hpc_row(path, dtype=getattr(torch, dtype), to_dia=False, device="cpu")
     _ell_arrays_equal(port.A, jprob.A)
     _same(px, jx)
     assert port.total_nnz_model == jprob.total_nnz_model == prob.A.nnz
@@ -99,7 +99,7 @@ def test_jax_writer_is_read_by_port(tmp_path, to_dia):
     path = str(tmp_path / "j.txt")
     jio.write_hpc_row(path, jprob, x)
     jread, jx = jio.read_hpc_row(path, dtype=jnp.float64, to_dia=to_dia)
-    prob, px = tio.read_hpc_row(path, dtype=torch.float64, to_dia=to_dia)
+    prob, px = tio.read_hpc_row(path, dtype=torch.float64, to_dia=to_dia, device="cpu")
     if to_dia:
         assert isinstance(prob.A, DiaMatrix) and prob.A.offsets == jread.A.offsets
         _same(prob.A.data, jread.A.data)
@@ -113,7 +113,7 @@ def test_jax_writer_is_read_by_port(tmp_path, to_dia):
 def test_structured_banded_file_is_dia(tmp_path):
     path = str(tmp_path / "band.txt")
     tio.write_hpc_row(path, _stencil_problem((7, 6, 5)))
-    prob, perm, report = tio.read_hpc_row_structured(path)
+    prob, perm, report = tio.read_hpc_row_structured(path, device="cpu")
     jprob, jperm, jreport = jio.read_hpc_row_structured(path, dtype=jnp.float64)
     assert report.format == jreport.format == "dia" and perm is None and jperm is None
     assert report.ndiag == jreport.ndiag == prob.A.ndiag == 27
@@ -161,7 +161,7 @@ def test_rcm_numpy_fallback_matches_jax(monkeypatch, scipy_rcm):
 def test_permuted_stencil_file_is_ell_rcm(tmp_path, scipy_rcm):
     path = str(tmp_path / "perm.txt")
     tio.write_hpc_row(path, permuted_twin(_stencil_problem((8, 8, 8)), 6))
-    prob, perm, report = tio.read_hpc_row_structured(path)
+    prob, perm, report = tio.read_hpc_row_structured(path, device="cpu")
     assert report.format == "ell+rcm" and perm is not None
     assert report.bandwidth_after < report.bandwidth_before
     np.testing.assert_array_equal(perm, jreorder.rcm_permutation(jio.read_hpc_row(path, to_dia=False)[0].A))
@@ -173,7 +173,7 @@ def test_permuted_stencil_file_is_ell_rcm(tmp_path, scipy_rcm):
 def test_stored_zeros_file_stays_ell(tmp_path):
     path = str(tmp_path / "zeros.txt")
     tio.write_hpc_row(path, _with_stored_zero(_stencil_problem()))
-    prob, perm, report = tio.read_hpc_row_structured(path)
+    prob, perm, report = tio.read_hpc_row_structured(path, device="cpu")
     _, jperm, jreport = jio.read_hpc_row_structured(path, dtype=jnp.float64)
     assert report.format == jreport.format == "ell" and perm is None and jperm is None
     assert "explicit zero entries" in report.reason and "explicit zero entries" in jreport.reason
@@ -192,7 +192,7 @@ def test_no_reorder_branch(tmp_path, case, dims, dtype, want):
     prob = _stencil_problem(dims, getattr(torch, dtype))
     path = str(tmp_path / f"{case}.txt")
     tio.write_hpc_row(path, prob if case == "banded" else permuted_twin(prob, 7))
-    got, perm, report = tio.read_hpc_row_structured(path, dtype=getattr(torch, dtype), reorder=False)
+    got, perm, report = tio.read_hpc_row_structured(path, dtype=getattr(torch, dtype), reorder=False, device="cpu")
     _, jperm, jreport = jio.read_hpc_row_structured(path, dtype=getattr(jnp, dtype), reorder=False)
     assert perm is None and jperm is None
     assert report.format == jreport.format == want
@@ -220,7 +220,7 @@ def test_reader_rejects_malformed_files(tmp_path):
     for text in ("", "3 4\n1 1 1\n", "2 2\n1 1\n1.0 0\n"):
         path.write_text(text)
         with pytest.raises(ValueError):
-            tio.read_hpc_row(str(path))
+            tio.read_hpc_row(str(path), device="cpu")
 
 
 def test_scattered_ell_chooses_like_its_byte_rule():

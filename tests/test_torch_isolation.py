@@ -34,7 +34,7 @@ def test_port_modules_never_import_jax():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=_env(),
                           cwd=ROOT, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 25  # every module of the slices was imported
+    assert int(proc.stdout.strip()) >= 30  # every module of the slices was imported
 
 
 def test_chip_smoke_fails_without_a_gpu():
