@@ -24,7 +24,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    cg1) and K16 (pipecg) against theirs with 1, 2, 4, 6 and 8 ranks on the
    one card, per rank 33x17x9 (27/7-point), 64x48x13 and 128x64x16 (more
    work items than a rank's blocks at 6 and 8 ranks), float32 and float64
-   (phase_collective_kernels);
+   (phase_collective_kernels); then K17 (cg, cg1) against its plain
+   version with 1, 2, 4, 6 and 8 ranks on the card, float32 and float64,
+   on symmetric bands: scattered within +-200 at 2048 and 100000 rows per
+   rank, the diagonal alone, a band as wide as the shard
+   (phase_collective_dia_kernels);
 4. main paths, each with every count set to 0 just before it and
    read just after: (a) slice 1, make_cg on the generated 27-point float32
    problem at 100^3 (max_iter 150) on auto (= pallas_fused), pallas and
@@ -45,18 +49,26 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    per rank on 1, 2, 4 and 8 ranks (weak scaling) and 64x64x1024 on 8
    ranks (strong scaling), each on collective (cg, cg1, pipecg: one launch
    of K15/K16 per solve), pallas_fused and stencil, against the
-   single-device stencil solve of the same global grid;
+   single-device stencil solve of the same global grid; (f) slice 5,
+   distributed file mode: generate_ell(128^3) as DIA and as ELL, padded
+   and sharded over 4 ranks of the card, float32 and float64, 50
+   iterations, on dia-collective (K17 cg and cg1, one launch per solve,
+   also against its plain version), dia-halo (K9/K10), ell-halo and
+   ell-allgather (K11/K12), against the single-device DIA solve; and the
+   permuted 64^3 f64 file after RCM on ell-halo;
 5. golden: the reference's 10^3 float64 run on pallas_fused, megakernel,
    streamkernel and pallas_dd, from an HPC-row file through the CLI (DIA)
-   and through make_cg on the EllMatrix (ELL), and as two 10x10x5 ranks on
-   collective (K15, cg);
+   and through make_cg on the EllMatrix (ELL), as two 10x10x5 ranks on
+   collective (K15, cg), and from the file as two ranks on dia-collective
+   (K17, cg);
 6. CLI: ``python -m hpccg_tpu_torch 100 100 100 --json`` with
    ``--dtype float32``, ``--backend megakernel --dtype float32`` and
    ``--dtype bfloat16`` (auto = streamkernel); ``--method cg1``, ``--method
    pipecg --rr-every 50`` (float32) and ``--refine 3`` (float64); file mode
    on a 64^3 float64 file (dia) and its randomly permuted twin (ell+rcm;
    ell with ``--no-reorder``), written by the port's writer, 149 iterations
-   each;
+   each; FILE --mesh 2 where the machine has two cards (one per rank; on
+   one card it prints that it did not run);
 7. timing: slope-timed us per CG iteration for each backend at 100^3 and
    256^3 float32 and the whole-solve backends at 256^3 bfloat16 (CUDA
    events, legs of 65 and 1025 iterations), the whole-solve kernels' device
@@ -66,12 +78,14 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    K9-K12 per launch with effective GB/s; the collective backends at 1 x
    100^3 (beside megakernel), 4 x 100^3 and 8 x 64^3 (beside distributed
    pallas_fused; legs of 17 and 97; N ranks share one card, so these are no
-   scaling numbers) and K15/K16 against their plain versions. Nothing is
-   asserted on times.
+   scaling numbers) and K15/K16 against their plain versions; at 4 x
+   128^3/4 float32 DIA (legs of 17 and 145) K17 cg and cg1, dia-halo, the
+   single-device DIA solve, K17 against its plain version and the busy
+   share of one 50-iteration K17 solve. Nothing is asserted on times.
 
 The kernels' JSON line gives, for every kernel: its launches on its main
 path, max|kernel - plain|, its device ms and its plain version's (per
-launch; per CG iteration for K5, K6, K15 and K16), the bound (the larger of
+launch; per CG iteration for K5, K6, K15, K16 and K17), the bound (the larger of
 the bytes it must move over 3.35 TB/s and its operations over the peak
 rate) and, where one PyTorch call computes the same function, that call's
 ms (conv3d for K1, a sparse CSR product for K9-K14; null elsewhere).
@@ -119,14 +133,18 @@ KERNELS = {
                                              "hpccg_tpu/ops/pallas/collective_kernel.py:329"),
     "K16 pipelined collective whole solve": ("hpccg_tpu_torch/csrc/collective.cu",
                                              "hpccg_tpu/ops/pallas/collective_kernel.py:596"),
+    "K17 collective DIA whole solve (cg, cg1)": ("hpccg_tpu_torch/csrc/collective_dia.cu",
+                                                 "hpccg_tpu/ops/pallas/collective_kernel.py:906"),
 }
 SLICE1 = list(KERNELS)[:5]  # the kernels of slice 1's main path
 SLICE2 = list(KERNELS)[5:8]
 SLICE3 = list(KERNELS)[8:14]
-SLICE4 = list(KERNELS)[14:]
+SLICE4 = list(KERNELS)[14:16]
+SLICE5 = list(KERNELS)[16:]
 K5, K6, K7 = SLICE2
 K9, K10, K11, K12, K13, K14 = SLICE3
 K15, K16 = SLICE4
+(K17,) = SLICE5
 WIDE = [K13, K14]  # counted on the wide-scatter solve
 # tolerances, kernel vs plain on the same inputs: the sums run in another
 # order (the xy-sums associate like the plain version, but the compiler may
@@ -610,7 +628,8 @@ def _counters():
     counters += [(cdia.spmv_dia, "launches_f32"), (cdia.spmv_dia, "launches_f64"),
                  (cell.spmv_ell, "launches_f32"), (cell.spmv_ell, "launches_f64"),
                  (cell.spmv_ell, "launches_f32"), (cell.spmv_ell, "launches_f32"),
-                 (col.cg_collective, "launches"), (col.cg_collective_pipelined, "launches")]
+                 (col.cg_collective, "launches"), (col.cg_collective_pipelined, "launches"),
+                 (col.cg_collective_dia, "launches")]
     return dict(zip(KERNELS, counters))
 
 
@@ -1078,14 +1097,17 @@ def _main_path_wide_scatter() -> None:
 
 def phase_main_path() -> dict:
     """Slice 1's main path, slice 2's, slice 3's and its wide-scatter solves,
-    slice 4's distributed solves, each with its own counts; the launches reported for each kernel are
+    slice 4's distributed solves, slice 5's distributed file-mode solves,
+    each with its own counts; the launches reported for each kernel are
     those of its own run."""
     first = _drive(_main_path_slice1, SLICE1)
     second = _drive(_main_path_slice2, SLICE2)
     third = _drive(_main_path_slice3, [K9, K10, K11, K12])
     wide = _drive(_main_path_wide_scatter, WIDE)
     fourth = _drive(_main_path_slice4, SLICE4)
-    runs = [(SLICE1, first), (SLICE2, second), ([K9, K10, K11, K12], third), (WIDE, wide), (SLICE4, fourth)]
+    fifth = _drive(_main_path_slice5, SLICE5)
+    runs = [(SLICE1, first), (SLICE2, second), ([K9, K10, K11, K12], third), (WIDE, wide), (SLICE4, fourth),
+            (SLICE5, fifth)]
     return {n: counts[n] for names, counts in runs for n in names}
 
 
@@ -1662,6 +1684,319 @@ def phase_timing_collective(card: str, stats: dict) -> None:
             f"{stats[name]['plain_ms'] * 1e3:.2f} [{card}]")
 
 
+# ------------------------------------------------------------ slice 5: distributed file mode
+
+# K17 against its plain version: (label, rows per rank, the band's positive
+# offsets or None for scattered ones within +-200); every band symmetric
+# and diagonally dominant, as the CG problems are
+DIA_CASES = [("scattered band within +-200, 2048 rows/rank", 2048, None),
+             ("scattered band within +-200, 100000 rows/rank", 100_000, None),
+             ("diagonal only, 4096 rows/rank", 4096, ()),
+             ("band as wide as the shard (+-512), 512 rows/rank", 512, (37, 512))]
+DIA_MULTI = 100_000  # its row tiles outnumber a rank's blocks at 6 and 8 ranks
+DIA_ITERS = 30
+FILE_NDEV = 4  # the main path: generate_ell(128^3) -> DIA on 4 ranks of one card
+FILE_RUNS = [("dia-collective", "cg"), ("dia-collective", "cg1"), ("dia-halo", "cg"), ("ell-halo", "cg"),
+             ("ell-allgather", "cg")]
+
+
+def _sym_dia(n, pos, dtype, gen):
+    """A symmetric, diagonally dominant DiaMatrix on the card: offsets 0 and
+    +-o for o in ``pos``, off-diagonal values in [-1, -0.1], the diagonal in
+    [2 ndiag, 2 ndiag + 1)."""
+    from hpccg_tpu_torch.operators import DiaMatrix
+
+    pos = sorted(pos)
+    k = len(pos)
+    data = torch.zeros((2 * k + 1, n), dtype=dtype, device="cuda")
+    data[k] = 2.0 * (2 * k + 1) + torch.rand(n, generator=gen, device="cuda", dtype=dtype)
+    for j, o in enumerate(pos):
+        if o < n:
+            v = torch.rand(n - o, generator=gen, device="cuda", dtype=dtype) * -0.9 - 0.1
+            data[k + 1 + j, : n - o] = v  # A[i, i + o]
+            data[k - 1 - j, o:] = v  # A[i + o, i]
+    return DiaMatrix(data=data, offsets=tuple([-o for o in reversed(pos)] + [0] + pos), total_nrow=n)
+
+
+def _sharded_file_problem(A, mesh, b=None):
+    """The problem A x = b (b = A 1 by default, x0 = 0) through the user's
+    entry points: padded to the mesh's ranks and sharded over it."""
+    from hpccg_tpu_torch.io import pad_problem_rows
+    from hpccg_tpu_torch.models.stencil import Problem
+    from hpccg_tpu_torch.parallel import shard_problem
+
+    n = A.local_nrow
+    b = A.matvec(torch.ones(n, dtype=A.dtype, device=A.device)) if b is None else b
+    prob = Problem(A=A, b=b, x0=torch.zeros_like(b), xexact=torch.ones_like(b), total_nrow=n,
+                   total_nnz_model=A.nnz, total_nnz_exact=A.nnz)
+    return shard_problem(pad_problem_rows(prob, mesh.size), mesh)
+
+
+def phase_collective_dia_kernels() -> dict:
+    """K17 (cg, cg1) against its plain version with every rank on cuda:0, at
+    1, 2, 4, 6 and 8 ranks, DIA_ITERS iterations, float32 and float64, on
+    the DIA_CASES bands: a scattered multi-row band (at 2048 and 100000
+    rows per rank: blocks take several row tiles in turns), the diagonal alone
+    (no strips) and a band as wide as the shard (rows go both ways). Limits
+    as K15's: niters equal, the trace within WS_TRACE above its floor (the
+    solve stops there, on a tolerance between two of the plain trace's
+    entries), x within WS_X_RTOL, two launches bit-identical. Returns K17's
+    max|x - x_plain|."""
+    from hpccg_tpu_torch.ops.cuda import collective as col
+
+    stats = {K17: {"max_abs_err": 0.0}}
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    multi = 0
+    for ndev in COLL_NDEVS:
+        mesh = _one_card(ndev)
+        for label, L, pos in DIA_CASES:
+            if pos is None:
+                pos = sorted((torch.randperm(200, generator=gen, device="cuda")[:6] + 1).tolist())
+            for dtype in (torch.float32, torch.float64):
+                prob = _sharded_file_problem(_sym_dia(L * ndev, pos, dtype, gen), mesh)
+                tag = f"{ndev} x {label} {str(dtype)[6:]}"
+                line = []
+                for method in ("cg", "cg1"):
+                    what = f"K17 {method} {tag}"
+                    rtol, floor, xrtol = _coll_limits(method, dtype)
+                    want = col.solve_plain_dia(prob.A, prob.b, prob.x0, method=method, max_iter=DIA_ITERS)
+                    tol = _ws_tolerance(want.trace, floor)
+                    if tol:
+                        want = col.solve_plain_dia(prob.A, prob.b, prob.x0, method=method, max_iter=DIA_ITERS,
+                                                   tolerance=tol)
+                    got, again = (col.cg_collective_dia(prob.A, prob.b, prob.x0, method=method, max_iter=DIA_ITERS,
+                                                        tolerance=tol) for _ in range(2))
+                    torch.cuda.synchronize()
+                    if int(got.niters) != int(want.niters):
+                        raise AssertionError(f"{what}: niters {int(got.niters)} vs plain {int(want.niters)}")
+                    n = int(want.niters) + 1
+                    worst = _head_rel(got.trace[:n].double().cpu(), want.trace[:n].double().cpu(), rtol, floor, what)
+                    if not bool(torch.isnan(got.trace[n:]).all()):
+                        raise AssertionError(f"{what}: trace entries past niters")
+                    gx, wx = torch.cat(got.x), torch.cat(want.x)
+                    xerr = float((gx - wx).abs().max())
+                    if not xerr <= xrtol * float(wx.abs().max()):
+                        raise AssertionError(f"{what}: max|x - x_plain| = {xerr:.3e}")
+                    same = all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got.x, again.x))
+                    if not (same and torch.equal(_bits(got.trace), _bits(again.trace))):
+                        raise AssertionError(f"{what}: two launches differ")
+                    stats[K17]["max_abs_err"] = max(stats[K17]["max_abs_err"], xerr)
+                    bpr = col.dia_blocks_per_rank(L, ndev, dtype, method)
+                    tiles = -(-L // col.dia_tile_rows())
+                    multi += int(L == DIA_MULTI and tiles > bpr)
+                    line.append(f"{method} niters {n - 1} trace {worst:.1e} x {xerr:.1e} ({tiles} row tiles/{bpr} "
+                                "blocks)")
+                say(f"[collective-dia] {tag}: ok, bit-identical; " + "; ".join(line))
+    if not multi:
+        raise AssertionError(f"{DIA_MULTI} rows/rank: no rank count gave a rank more row tiles than blocks")
+    return stats
+
+
+def _file_tier(tier):
+    from hpccg_tpu_torch.parallel import cg as pcg
+
+    return {"dia-collective": pcg.make_collective_dia_cg, "dia-halo": pcg.make_distributed_dia_cg,
+            "ell-halo": pcg.make_distributed_ell_halo_cg, "ell-allgather": pcg.make_distributed_ell_cg}[tier]
+
+
+def _main_path_slice5() -> None:
+    """Distributed file mode at full width: generate_ell(128^3) (2,097,152
+    rows, 27 diagonals, a band of 16,513 rows) as DIA and as ELL, padded and
+    sharded over 4 ranks of one card (shard_problem), float32 and float64,
+    50 iterations, on every tier: dia-collective (K17, cg and cg1; one
+    launch per solve, and held against its plain version), dia-halo (K9/K10,
+    4 launches per matvec), ell-halo and ell-allgather (K11/K12). Each is
+    held against the single-device DIA solve (make_cg: trace and x; cg1
+    against its plain version and, above 1e-5 of trace[0], against cg).
+    Then the randomly permuted 64^3 float64 stencil, written as an HPC-row
+    file and read back (auto_structure: RCM, then ELL), on ell-halo at 4
+    ranks against its single-device solve, 150 iterations."""
+    from hpccg_tpu_torch import make_cg
+    from hpccg_tpu_torch.io import pad_problem_rows, read_hpc_row_structured, write_hpc_row
+    from hpccg_tpu_torch.ops.cuda import collective as col
+    from hpccg_tpu_torch.parallel import cg as pcg
+
+    mesh = _one_card(FILE_NDEV)
+    for dtype in (torch.float32, torch.float64):
+        prob, dia = _explicit_128(dtype)
+        f32 = dtype == torch.float32
+        spmv = {"dia": K9 if f32 else K10, "ell": K11 if f32 else K12}
+        ref = make_cg(dia, max_iter=EXPLICIT_ITERS, tolerance=0.0)(prob.b, prob.x0)
+        torch.cuda.synchronize()
+        shards = {"dia": _sharded_file_problem(dia, mesh, prob.b),
+                  "ell": _sharded_file_problem(prob.A, mesh, prob.b)}
+        if pcg.ell_band(shards["ell"].A) != (16_513, 16_513) or not pcg.collective_dia_supported(dia, mesh)[0]:
+            raise AssertionError("128^3 on 4 ranks: expected a band of 16,513 rows that K17 takes")
+        for tier, method in FILE_RUNS:
+            what = f"4 x 128^3/4 {str(dtype)[6:]} {tier} {method}"
+            sp = shards["dia" if tier.startswith("dia") else "ell"]
+            before = _counts()
+            res = _file_tier(tier)(mesh, max_iter=EXPLICIT_ITERS, method=method)(sp.A, sp.b, sp.x0)
+            torch.cuda.synchronize()
+            delta = {n: c - before[n] for n, c in _counts().items()}
+            x = torch.cat(res.x)
+            if int(res.niters) != EXPLICIT_ITERS - 1 or not bool(torch.isfinite(x).all()):
+                raise AssertionError(f"{what}: niters {int(res.niters)}, finite x {bool(torch.isfinite(x).all())}")
+            rtol, floor = EXPLICIT_TRACE[dtype]
+            if method == "cg":
+                worst, tail = _trace_check(res.trace.double().cpu(), ref.trace.double().cpu(), what, rtol, floor)
+                note = f"trace within {worst:.2e} of the single-device DIA solve's, {tail:.2e} below"
+            else:
+                crtol, cfloor = (MAIN_TRACE["cg1"][1], MAIN_HEAD["cg1"]) if f32 else MAIN_F64["cg1"][:2]
+                worst = _head_rel(res.trace.double().cpu(), ref.trace.double().cpu(), crtol, cfloor, what)
+                note = f"trace within {worst:.2e} of the single-device DIA cg above {cfloor} of trace[0]"
+            xerr = float((x.double() - ref.x.double()).abs().max())
+            xlim = (1e-3 if method == "cg1" and f32 else EXPLICIT_X_RTOL[dtype]) * float(ref.x.double().abs().max())
+            if not xerr <= xlim:
+                raise AssertionError(f"{what}: max|x - x_single| = {xerr:.3e} > {xlim:.3e}")
+            note += f"; x {xerr:.2e}"
+            if tier == "dia-collective":
+                if delta[K17] != 1 or sum(delta.values()) != 1:
+                    raise AssertionError(f"{what}: expected one launch of K17, got {delta}")
+                plain = col.solve_plain_dia(sp.A, sp.b, sp.x0, method=method, max_iter=EXPLICIT_ITERS)
+                prtol, pfloor = WS_TRACE[dtype] if method == "cg" else (
+                    (MAIN_TRACE["cg1"][0], MAIN_HEAD["cg1"]) if f32 else MAIN_F64["cg1"][:2])
+                pworst = _head_rel(res.trace.double().cpu(), plain.trace.double().cpu(), prtol, pfloor,
+                                   f"{what} vs plain")
+                px = float((x - torch.cat(plain.x)).abs().max())
+                if not px <= EXPLICIT_X_RTOL[dtype] * float(torch.cat(plain.x).abs().max()):
+                    raise AssertionError(f"{what}: max|x - x_plain| = {px:.3e}")
+                note += f"; against its plain version: trace {pworst:.2e}, x {px:.2e}"
+            else:
+                kernel = spmv["dia" if tier == "dia-halo" else "ell"]
+                if delta[kernel] != FILE_NDEV * EXPLICIT_ITERS:  # the initial A x0 and one per iteration, per rank
+                    raise AssertionError(f"{what}: {kernel} launched {delta[kernel]} times")
+            say(f"[main] {what}: niters {int(res.niters)} normr {float(res.normr):.6e}; {note}; launches "
+                f"{_launch_note(delta)}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "permuted64.txt")
+        t0 = time.perf_counter()
+        write_hpc_row(path, _permuted(_stencil_ell((64, 64, 64), torch.float64, "cpu"), 3)[0])
+        prob, perm, report = read_hpc_row_structured(path, device="cuda")
+        t1 = time.perf_counter()
+    if report.format != "ell+rcm":
+        raise AssertionError(f"permuted 64^3 file: expected ell+rcm, got {report.format}")
+    sp = pcg.shard_problem(pad_problem_rows(prob, FILE_NDEV), mesh)
+    ok, reason = pcg.ell_halo_plan(sp.A, sp.A[0].local_nrow)
+    if not ok:
+        raise AssertionError(f"permuted 64^3 after RCM: {reason}")
+    ref = make_cg(prob.A, max_iter=150, tolerance=0.0)(prob.b, prob.x0)
+    before = _counts()
+    res = pcg.make_distributed_ell_halo_cg(mesh, max_iter=150)(sp.A, sp.b, sp.x0)
+    torch.cuda.synchronize()
+    delta = {n: c - before[n] for n, c in _counts().items()}
+    what = "permuted 64^3 f64 file, ell+rcm, ell-halo on 4 ranks"
+    if int(res.niters) != 149 or delta[K12] != FILE_NDEV * 150:
+        raise AssertionError(f"{what}: niters {int(res.niters)}, K12 launches {delta[K12]}")
+    worst, tail = _trace_check(res.trace.cpu(), ref.trace.cpu(), what, 1e-10, 1e-11)
+    xerr = float((torch.cat(res.x) - ref.x).abs().max())
+    if not xerr <= 1e-10:
+        raise AssertionError(f"{what}: max|x - x_single| = {xerr:.3e}")
+    say(f"[main] {what} (band {pcg.ell_band(sp.A)}; write + read + RCM {t1 - t0:.1f} s on the host): niters 149; "
+        f"trace within {worst:.2e} of the single-device solve's, {tail:.2e} below; x {xerr:.2e}; launches "
+        f"{_launch_note(delta)}")
+
+
+def phase_golden_file_mesh() -> None:
+    """The golden run from the 10^3 float64 HPC-row file (the one slice 3
+    writes), read by the user's reader, as two ranks of one card on
+    dia-collective (K17, method cg)."""
+    from hpccg_tpu_torch.io import read_hpc_row_structured, write_hpc_row
+    from hpccg_tpu_torch.ops.cuda import collective as col
+    from hpccg_tpu_torch.parallel import make_collective_dia_cg, shard_problem
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "golden10.txt")
+        write_hpc_row(path, _stencil_ell((10, 10, 10), torch.float64, "cpu"))
+        prob, _, report = read_hpc_row_structured(path, device="cuda")
+    mesh = _one_card(2)
+    sp = shard_problem(prob, mesh)
+    before = col.cg_collective_dia.launches
+    res = make_collective_dia_cg(mesh, max_iter=150, method="cg")(sp.A, sp.b, sp.x0)
+    if report.format != "dia" or col.cg_collective_dia.launches != before + 1:
+        raise AssertionError(f"golden file on 2 ranks: {report.format}, not one launch of K17")
+    _check_golden(res.trace.cpu().numpy(), int(res.niters), "file on 2 ranks of one card, dia-collective (K17, cg)")
+
+
+def phase_cli_file_mesh() -> None:
+    """FILE --mesh 2 through the CLI: one rank per card, so it needs two
+    cards (the 64^3 float64 file on dia-halo, 149 iterations). On a
+    one-card machine it says so and stops: the tiers ran through the API on
+    a one-card mesh in the main path."""
+    from hpccg_tpu_torch.io import write_hpc_row
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        say(f"[cli] FILE --mesh 2: not run, this machine has {cards} card (--mesh N takes one card per rank; the "
+            "distributed file tiers ran through the API on a one-card mesh above)")
+        return
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "stencil64.txt")
+        write_hpc_row(path, _stencil_ell((64, 64, 64), torch.float64, "cpu"))
+        report, _, err = _cli([path, "--mesh", "2", "--json"], "FILE --mesh 2")
+    note = next(k for k in report["Time Summary"] if k.startswith("("))
+    if report["Number of iterations"] != 149 or "backend=distributed:dia-halo" not in note:
+        raise AssertionError(f"cli FILE --mesh 2: {report['Number of iterations']} iterations; {note}")
+    say(f"[cli] 64^3 file --mesh 2 ({cards} cards): rc 0, iterations 149, {_structure_line(err)[2:]}; time summary "
+        f"{json.dumps(report['Time Summary'])}")
+
+
+def phase_timing_file_mesh(card: str, stats: dict) -> None:
+    """Slope-timed us per CG iteration (legs of 17 and 145) at 4 x 128^3/4
+    float32, the 128^3 DIA on 4 ranks of one card: dia-collective (K17, cg
+    and cg1), dia-halo (K9 per rank), beside the single-device DIA solve.
+    The ranks share one card: these are no scaling numbers. Then K17 (cg)
+    against its plain version, plain, kernel, kernel, plain, and the device
+    busy share of one 50-iteration K17 solve."""
+    from hpccg_tpu_torch import make_cg
+    from hpccg_tpu_torch.ops.cuda import collective as col
+    from hpccg_tpu_torch.parallel import cg as pcg
+    from hpccg_tpu_torch.utils.timing import time_loop_slope
+
+    def slope(run):
+        return time_loop_slope(run, device="cuda", short=17, long=145) * 1e6
+
+    mesh = _one_card(FILE_NDEV)
+    prob, dia = _explicit_128(torch.float32)
+    sp = _sharded_file_problem(dia, mesh, prob.b)
+    n = prob.total_nrow
+    tag = "4 x 128^3/4 f32 DIA"
+    runs = [("dia-collective", "cg"), ("dia-collective", "cg1"), ("dia-halo", "cg")]
+    for tier, method in runs:
+        last = []
+
+        def run(k, tier=tier, method=method):
+            last.append(_file_tier(tier)(mesh, max_iter=k + 1, method=method)(sp.A, sp.b, sp.x0))
+
+        t = slope(run)
+        say(f"[timing] {tag} {tier} {method}: {t:.2f} us/iter, {27 * n / t / 1e3:.1f} Gnnz/s (long-leg niters "
+            f"{int(last[-1].niters)}; 4 ranks on one card) [{card}]")
+    t = slope(lambda k: make_cg(dia, max_iter=k + 1)(prob.b, prob.x0))
+    say(f"[timing] 128^3 f32 single-device DIA (K9): {t:.2f} us/iter [{card}]")
+
+    def plain(k):
+        col.solve_plain_dia(sp.A, sp.b, sp.x0, method="cg", max_iter=k + 1)
+
+    def kernel(k):
+        col.cg_collective_dia(sp.A, sp.b, sp.x0, method="cg", max_iter=k + 1)
+
+    t_p1, t_k1, t_k2, t_p2 = (slope(f) for f in (plain, kernel, kernel, plain))
+    st = stats[K17]
+    st["ms"], st["plain_ms"] = (t_k1 + t_k2) / 2e3, (t_p1 + t_p2) / 2e3
+    # one cg iteration: the diagonal data read once and 11 vector passes (p update 3, apply 2, x/r update 6)
+    ndiag = dia.ndiag
+    _model(st, (ndiag + 11) * n * 4, 2 * ndiag * n + 2 * 11 * n, 4)
+    bound_ms, _ = _bound(st)
+    say(f"[timing] K17 (cg) at {tag}: {st['ms'] * 1e3:.2f} us/iter vs plain {st['plain_ms'] * 1e3:.2f}, bound "
+        f"{bound_ms * 1e3:.2f} ({(ndiag + 11) * n * 4 / 1e6:.1f} MB per iteration) [{card}]")
+
+    def one(k):
+        col.cg_collective_dia(sp.A, sp.b, sp.x0, method="cg", max_iter=k + 1)
+
+    _busy_share(one, EXPLICIT_ITERS, card, f"{tag} K17 cg one {EXPLICIT_ITERS}-iteration solve",
+                "collective_dia_kernel")
+
+
 def _phase(name, fn, *args):
     """fn(*args), with its seconds printed."""
     t0 = time.perf_counter()
@@ -1678,15 +2013,19 @@ def main() -> int:
     _phase("large offsets", phase_large_offsets)
     stats.update(_phase("sparse kernels vs plain", phase_sparse_kernels, card))
     stats.update(_phase("collective kernels vs plain", phase_collective_kernels))
+    stats.update(_phase("collective DIA kernel vs plain", phase_collective_dia_kernels))
     launches = _phase("main paths", phase_main_path)
     _phase("golden", phase_golden)
     _phase("golden, collective", phase_golden_collective)
+    _phase("golden, distributed file mode", phase_golden_file_mesh)
     _phase("cli", phase_cli)
     _phase("cli, methods", phase_cli_methods)
     _phase("cli, file mode", phase_cli_files)
+    _phase("cli, distributed file mode", phase_cli_file_mesh)
     _phase("timing", phase_timing, card)
     _phase("timing, explicit matrices", phase_timing_explicit, card, stats)
     _phase("timing, collective", phase_timing_collective, card, stats)
+    _phase("timing, distributed file mode", phase_timing_file_mesh, card, stats)
     kernels = []
     for name, (src, rep) in KERNELS.items():
         st = stats[name]

@@ -9,7 +9,7 @@ Stencil mode generates the problem on the device. File mode (main.cpp:
 (``io.read_hpc_row_structured``: DIA or ELL, RCM-reordered where that
 exposes a band, or not with ``--no-reorder``; the choice is printed on
 stderr as ``# matrix structure: <format> — <reason>``) and solves in that
-basis; ``--check`` and ``--validate`` work in the solve basis, and the
+basis; ``--check`` compares x with xexact in the file's basis, and the
 report's nx, ny and nz are 0. Both run the reference CG recurrence, print
 the per-iteration residual lines and the YAML (or JSON) report with the JAX
 package's keys: Time/FLOPS/MFLOPS summaries and the FLOP model of
@@ -21,8 +21,21 @@ inner solves; single device) and ``--mesh N``: the z-stacked problem of N
 blocks of nx*ny*nz on a single-controller mesh (``parallel``), N ranks on
 the CPU with ``--device cpu``, one per card on CUDA (``--mesh N`` needs N
 cards, as the JAX package needs N chips), with the distributed backends and
-``--backend collective`` (the whole solve in one launch of K15/K16). File
-mode runs on one device.
+``--backend collective`` (the whole solve in one launch of K15/K16).
+
+File mode at ``--mesh N`` (distributed file mode) pads the rows to a
+multiple of N (identity rows, ``io.pad_problem_rows``), block-shards them
+and picks a tier of ``parallel.cg`` by structure, as the JAX package does:
+``--backend collective`` on a DIA matrix that K17 takes ->
+``distributed:dia-collective`` (the whole solve in one launch of K17,
+methods cg and cg1; pipecg runs cg1, ``--rr-every`` is ignored); a DIA band
+that fits a shard -> ``dia-halo`` (K9/K10 per rank); an ELL band that fits
+-> ``ell-halo`` (K11/K12 per rank); anything else -> ``ell-allgather``.
+Each fallback says why on stderr. ``--check`` strips the pad rows and
+undoes RCM first; the report names the tier and the mesh size. On CUDA
+``--mesh N`` takes one card per rank, and K17 runs every rank on one card,
+so across cards ``collective`` falls back to dia-halo (the API drives K17
+on a one-card mesh: ``parallel.make_collective_dia_cg``).
 
 Total is timed with CUDA events around a warm solve (the host clock on the
 CPU). SPARSEMV is slope-timed on K1 (empty for bfloat16: K1 has no bf16
@@ -75,7 +88,8 @@ def build_argparser() -> argparse.ArgumentParser:
         choices=[*BACKENDS, *FILE_BACKENDS, "collective"],
         help="auto = pallas_fused on CUDA (streamkernel for bfloat16), stencil on the CPU; at --mesh > 1 "
         "pallas (pallas_dd for float64) on CUDA; collective (--mesh > 1) = the whole solve in one "
-        "launch of K15/K16; in file mode auto/ell/dia run the matrix's kernel and stencil its plain version",
+        "launch of K15/K16, or of K17 for a banded (DIA) file; in file mode auto/ell/dia run the matrix's "
+        "kernel and stencil its plain version, and at --mesh > 1 the tier follows the structure",
     )
     ap.add_argument("--method", default="cg", choices=list(METHODS),
                     help="cg: the reference recurrence (2 reductions/iter); cg1: Chronopoulos-Gear (1); "
@@ -120,8 +134,6 @@ def _not_ported(args) -> str | None:
         return f"--backend {args.backend} on a generated problem"
     if not args.mesh.isdigit():
         return f"--mesh {args.mesh} (the 2-D HxZ mesh)"
-    if file_mode and int(args.mesh) > 1:
-        return f"--mesh {args.mesh} in file mode"
     return None
 
 
@@ -222,6 +234,107 @@ def _distributed(args, cfg, ndev: int, device):
     return solve, prob, mesh, f"distributed:{backend}"
 
 
+def _distributed_file(args, prob, ndev: int, device):
+    """(solve, sharded problem, mesh, backend label) for FILE --mesh N > 1:
+    the rows padded to N ranks and the tier chosen by structure
+    (``hpccg_tpu.cli``'s order: dia-collective, dia-halo, ell-halo,
+    ell-allgather), each fallback said on stderr."""
+    import dataclasses
+    import functools
+
+    from hpccg_tpu_torch.io import pad_problem_rows
+    from hpccg_tpu_torch.parallel import cg as pcg
+    from hpccg_tpu_torch.parallel import make_mesh
+
+    def note(msg):
+        print(f"# {msg}", file=sys.stderr)
+
+    mesh = make_mesh(ndev, devices=[device] * ndev if device.type == "cpu" else None)
+    want_collective = args.backend == "collective"
+    if want_collective and args.method not in ("cg", "cg1"):
+        note(f"the collective DIA kernel implements the cg and cg1 recurrences; ignoring --method {args.method} "
+             "(running cg1)")
+        args.method = "cg1"
+    elif not want_collective and args.backend != "auto":
+        note(f"distributed file mode picks the kernel tier by matrix structure; ignoring --backend {args.backend}")
+    prob = pad_problem_rows(prob, ndev)
+    A, L = prob.A, prob.total_nrow // ndev
+    tier, explained = None, False
+    if want_collective and isinstance(A, DiaMatrix):
+        ok, reason = pcg.collective_dia_supported(A, mesh, args.method)
+        if ok:
+            rec = ("reference cg recurrence, 2 in-kernel allreduces/iter" if args.method == "cg"
+                   else "cg1 single-reduction recurrence")
+            note(f"backend=collective: whole-solve kernel K17, in-kernel band strips + allreduce ({rec})")
+            if args.rr_every:
+                note("--rr-every does not apply to the in-kernel collective recurrences; ignoring")
+            tier = "dia-collective"
+        else:
+            explained = True
+            note(f"collective unavailable: {reason}; falling back (the fallback tier runs --method {args.method})")
+    if tier is None and isinstance(A, DiaMatrix):
+        ok, reason = pcg.dia_halo_plan(A, L)
+        if ok:
+            tier = "dia-halo"
+        else:
+            note(f"{reason}; using the all-gather ELL path")
+            A, tier = A.to_ell(), "ell-allgather"
+    if tier is None:
+        ok, reason = pcg.ell_halo_plan(A, L)
+        tier = "ell-halo" if ok else "ell-allgather"
+        if not ok:
+            note(f"{reason}; using the all-gather ELL path")
+    if want_collective and tier != "dia-collective" and not explained:
+        note(f"--backend collective applies to banded (DIA) file matrices; this matrix ran distributed:{tier}")
+    prob = pcg.shard_problem(dataclasses.replace(prob, A=A), mesh)
+    kw = dict(max_iter=args.max_iter, tolerance=args.tolerance, method=args.method)
+    if tier == "dia-collective":
+        make = pcg.make_collective_dia_cg(mesh, **kw)
+    else:
+        make = {"dia-halo": pcg.make_distributed_dia_cg, "ell-halo": pcg.make_distributed_ell_halo_cg,
+                "ell-allgather": pcg.make_distributed_ell_cg}[tier](mesh, replace_every=args.rr_every, **kw)
+    return functools.partial(make, prob.A), prob, mesh, f"distributed:{tier}"
+
+
+def _kernel_bench_file_distributed(prob, backend_used, device, mesh):
+    """(ddot, waxpby, spmv) seconds per call in distributed file mode: the
+    tier's per-rank kernel with the exchange timed apart
+    (``parallel.cg.make_distributed_spmv_bench``), DDOT and WAXPBY on the
+    global vectors (NaN for dia-collective, where they are fused)."""
+    from hpccg_tpu_torch.parallel.cg import make_distributed_spmv_bench
+    from hpccg_tpu_torch.utils.timing import time_loop_slope
+
+    tier = backend_used.split(":", 1)[1]
+    step = make_distributed_spmv_bench(mesh, prob.A, tier)
+
+    def spmv_loop(k):
+        for _ in range(k):
+            step()
+
+    t_spmv = time_loop_slope(spmv_loop, device=device)
+    if tier == "dia-collective":
+        return float("nan"), float("nan"), t_spmv
+    return (*_vector_bench(mesh.unshard(prob.b), mesh.unshard(prob.x0), device), t_spmv)
+
+
+FILE_SPMV_NOTES = {
+    "dia-collective": "the dia-halo tier's K9/K10 DIA kernel on each rank's extended vector (the collective whole "
+                      "solve has no standalone SpMV)",
+    "dia-halo": "the K9/K10 DIA kernel on each rank's extended vector (the band-strip exchange timed apart)",
+    "ell-halo": "the K11/K12 ELL gather kernel on each rank's extended vector (the band-strip exchange timed apart)",
+    "ell-allgather": "the x all-gather and the K11/K12 ELL gather kernel",
+}
+
+
+def _file_basis(x, nrow: int, perm):
+    """A solve-basis vector (flat or sharded) in the file's basis: the pad
+    rows stripped, RCM undone; a CPU tensor."""
+    from hpccg_tpu_torch.io import unpermute
+
+    flat = x if isinstance(x, torch.Tensor) else torch.cat([v.cpu() for v in x])
+    return torch.from_numpy(unpermute(flat[:nrow], perm))
+
+
 def _kernel_bench_distributed(prob, backend_used, device, mesh, cfg):
     """(ddot, waxpby, spmv) seconds per call at --mesh > 1: the sharded
     matvec of the tier that solved (K1 with halo planes, or the plain halo'd
@@ -275,12 +388,13 @@ def main(argv=None) -> int:
         from hpccg_tpu_torch.io import read_hpc_row_structured
 
         try:
-            prob, _perm, structure = read_hpc_row_structured(args.dims[0], dtype=dtype,
+            prob, perm, structure = read_hpc_row_structured(args.dims[0], dtype=dtype,
                                                              reorder=not args.no_reorder, device=device)
         except (OSError, ValueError) as err:
             print(f"error: cannot read {args.dims[0]}: {err}", file=sys.stderr)
             return 2
         print(f"# matrix structure: {structure.format} — {structure.reason}", file=sys.stderr)
+        file_nrow = prob.total_nrow  # before any --mesh row padding
         nx = ny = nz = 0
         backend_used = _explicit_backend(prob.A, args.backend)
     else:
@@ -295,8 +409,14 @@ def main(argv=None) -> int:
         print("# --backend collective needs --mesh > 1 (the whole solve of every rank in one launch); "
               "using auto", file=sys.stderr)
         args.backend = "auto"
+    if file_mode and ndev > 1 and args.validate:  # the invariants, before the rows are padded and sharded
+        from hpccg_tpu_torch.utils.checks import validate_problem
+
+        print(f"# problem validated: {validate_problem(prob)}", file=sys.stderr)
     try:
-        if ndev > 1:
+        if file_mode and ndev > 1:
+            solve, prob, mesh, backend_used = _distributed_file(args, prob, ndev, device)
+        elif ndev > 1:
             solve, prob, mesh, backend_used = _distributed(args, cfg, ndev, device)
         elif args.refine > 0:
             if dtype != torch.float64:
@@ -322,10 +442,10 @@ def main(argv=None) -> int:
         print(f"error: {err}", file=sys.stderr)
         return 2
 
-    if args.validate and mesh is not None:
+    if args.validate and mesh is not None and not file_mode:
         print("# --validate: pre-solve invariant checks run single-device only; post-solve finiteness check "
               "still applies", file=sys.stderr)
-    elif args.validate:
+    elif args.validate and mesh is None:
         from hpccg_tpu_torch.utils.checks import validate_problem
 
         print(f"# problem validated: {validate_problem(prob)}", file=sys.stderr)
@@ -346,7 +466,10 @@ def main(argv=None) -> int:
     if args.check:
         from hpccg_tpu_torch.ops.vector import compute_residual
 
-        x, xexact = (res.x, prob.xexact) if mesh is None else (mesh.unshard(res.x), mesh.unshard(prob.xexact))
+        if file_mode:
+            x, xexact = (_file_basis(v, file_nrow, perm) for v in (res.x, prob.xexact))
+        else:
+            x, xexact = (res.x, prob.xexact) if mesh is None else (mesh.unshard(res.x), mesh.unshard(prob.xexact))
         check_residual = float(compute_residual(x, xexact))
         print(f"Difference between computed and exact = {check_residual:.6g}")
 
@@ -380,9 +503,12 @@ def main(argv=None) -> int:
 
     t_ddot = t_waxpby = t_spmv = float("nan")
     if not args.skip_kernel_bench:
-        bench = _kernel_bench if mesh is None else _kernel_bench_distributed
-        t_ddot1, t_wax1, t_spmv1 = bench(prob, backend_used, device) if mesh is None else bench(
-            prob, backend_used, device, mesh, cfg)
+        if mesh is None:
+            t_ddot1, t_wax1, t_spmv1 = _kernel_bench(prob, backend_used, device)
+        elif file_mode:
+            t_ddot1, t_wax1, t_spmv1 = _kernel_bench_file_distributed(prob, backend_used, device, mesh)
+        else:
+            t_ddot1, t_wax1, t_spmv1 = _kernel_bench_distributed(prob, backend_used, device, mesh, cfg)
         t_ddot = t_ddot1 * 2 * fniters
         t_waxpby = t_wax1 * (1 if backend_used.endswith("pallas_fused") else 3) * fniters
         t_spmv = t_spmv1 * fniters
@@ -401,7 +527,7 @@ def main(argv=None) -> int:
     dims.add("nx", nx)
     dims.add("ny", ny)
     dims.add("nz", nz)
-    if mesh is not None:
+    if mesh is not None and not file_mode:
         dims.add("global nz", nz * ndev)
     dims.add("stencil", args.stencil)
     dims.add("dtype", args.dtype)
@@ -420,11 +546,13 @@ def main(argv=None) -> int:
     fused_note = ""
     if backend_used in ("pallas_fused", "distributed:pallas_fused"):
         fused_note = "; WAXPBY times K4 (x/r update fused with r.r) once per iteration and DDOT is fused into K3/K4"
-    elif backend_used in (*WHOLE_SOLVE_BACKENDS, "distributed:collective"):
+    elif backend_used in (*WHOLE_SOLVE_BACKENDS, "distributed:collective", "distributed:dia-collective"):
         fused_note = "; DDOT and WAXPBY are fused into the whole-solve kernel (one launch per solve)"
     if dtype == torch.bfloat16:
         fused_note += "; SPARSEMV is empty: K1 has no bfloat16 instance yet"
-    if mesh is not None:
+    if mesh is not None and file_mode:
+        spmv_note = f"{FILE_SPMV_NOTES[backend_used.split(':', 1)[1]]} on {ndev} ranks"
+    elif mesh is not None:
         spmv_note = ("the plain halo'd matvec" if backend_used == "distributed:stencil"
                      else "the K1 stencil kernel with halo planes") + f" on {ndev} ranks"
     elif not file_mode:

@@ -16,7 +16,11 @@ Sharded state: a JAX array sharded over a mesh is handed over as its global
 numpy array (``np.asarray``); ``shards_from_numpy`` cuts it into the port's
 per-rank tuple on a ``parallel.mesh.Mesh`` and ``shards_to_numpy`` joins the
 tuple again. A distributed CGResult (x sharded) converts both ways with
-``result_from_numpy(..., mesh=)`` and ``result_to_numpy``.
+``result_from_numpy(..., mesh=)`` and ``result_to_numpy``. An explicit
+problem (a JAX ``DiaMatrix`` or ``EllMatrix`` with b, x0 and xexact)
+becomes the port's with ``explicit_problem_from_numpy``, sharded over a
+mesh when one is given (``parallel.cg.shard_problem``: per-rank row
+blocks); ``explicit_problem_to_numpy`` joins the blocks again.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import torch
 
 from hpccg_tpu_torch.config import Stencil
 from hpccg_tpu_torch.models.stencil import Problem
-from hpccg_tpu_torch.operators import DiaMatrix, EllMatrix, StencilOperator
+from hpccg_tpu_torch.operators import DiaMatrix, DiaRows, EllMatrix, StencilOperator
 from hpccg_tpu_torch.solver import CGResult
 
 
@@ -133,3 +137,42 @@ def dia_from_numpy(data, offsets, total_nrow=None, *, device) -> DiaMatrix:
 
 def dia_to_numpy(A: DiaMatrix) -> dict:
     return {"data": _numpy(A.data), "offsets": A.offsets, "total_nrow": A.total_nrow}
+
+
+def explicit_problem_from_numpy(A: dict, b, x0, xexact, *, device, mesh=None, total_nnz=None) -> Problem:
+    """A Problem on ``device`` from the numpy arrays of an explicit problem:
+    ``A`` holds a DiaMatrix's ``data``/``offsets`` or an EllMatrix's
+    ``vals``/``cols``/``valid`` (``dia_to_numpy`` / ``ell_to_numpy`` keys,
+    with ``total_nrow``). With ``mesh`` the problem is sharded over it:
+    the matrix as per-rank row blocks, the vectors as shards."""
+    if "data" in A:
+        M = dia_from_numpy(A["data"], A["offsets"], A.get("total_nrow"), device=device)
+    else:
+        M = ell_from_numpy(A["vals"], A["cols"], A["valid"], A.get("start_row", 0), A.get("total_nrow"),
+                           device=device)
+    n = M.local_nrow
+    nnz = M.nnz if total_nnz is None else total_nnz
+    prob = Problem(A=M, b=_tensor(b, device), x0=_tensor(x0, device), xexact=_tensor(xexact, device), total_nrow=n,
+                   total_nnz_model=nnz, total_nnz_exact=nnz)
+    if mesh is None:
+        return prob
+    from hpccg_tpu_torch.parallel.cg import shard_problem
+
+    return shard_problem(prob, mesh)
+
+
+def explicit_problem_to_numpy(prob: Problem) -> dict:
+    """The problem's arrays, a sharded one's joined in rank order: ``A`` as
+    ``dia_to_numpy`` / ``ell_to_numpy`` give it (of the assembled matrix),
+    and b, x0, xexact."""
+    A = prob.A
+    if isinstance(A, tuple):
+        if isinstance(A[0], DiaRows):
+            A = DiaMatrix(data=torch.cat([blk.data.cpu() for blk in A], dim=1), offsets=A[0].offsets,
+                          total_nrow=A[0].total_nrow)
+        else:
+            A = EllMatrix(vals=torch.cat([blk.vals.cpu() for blk in A]), cols=torch.cat([blk.cols.cpu() for blk in A]),
+                          valid=torch.cat([blk.valid.cpu() for blk in A]), start_row=0, total_nrow=A[0].total_nrow)
+    out = dia_to_numpy(A) if isinstance(A, DiaMatrix) else ell_to_numpy(A)
+    vecs = {name: getattr(prob, name) for name in ("b", "x0", "xexact")}
+    return {"A": out, **{k: _numpy(v) if isinstance(v, torch.Tensor) else shards_to_numpy(v) for k, v in vecs.items()}}

@@ -22,4 +22,13 @@ __device__ __forceinline__ T block_sum(T v, T* red, int tid) {
   return red[0];
 }
 
+// A product and a sum each rounded on its own, never contracted into an FMA:
+// the DIA sums (dia.cu, collective_dia.cu) take the roundings of their plain
+// torch version (one sliced multiply-add per diagonal) and match it bit for
+// bit.
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+
 }  // namespace hpccg

@@ -125,6 +125,55 @@ def read_hpc_row_structured(path: str, *, dtype=torch.float64, max_diags: int = 
     return prob, perm, report
 
 
+def pad_problem_rows(prob: Problem, multiple: int) -> Problem:
+    """An explicit-matrix problem padded so that its row count divides
+    ``multiple`` (a mesh's rank count: equal row blocks), on the matrix's
+    device (``hpccg_tpu.io.pad_problem_rows``).
+
+    Pad rows are decoupled identity rows with b = x0 = xexact = 0: they
+    solve to exactly 0 and add exactly 0 to every dot product, and no real
+    row references them, so the CG trajectory on the real rows is the
+    unpadded problem's. A DiaMatrix without offset 0 gets a zero diagonal
+    there first, for the pad rows' ones. ``total_nrow`` is the padded count;
+    the FLOP and nonzero models keep the file's counts."""
+    n = prob.total_nrow
+    npad = -(-n // multiple) * multiple
+    if npad == n:
+        return prob
+    A = prob.A
+    if isinstance(A, EllMatrix):
+        width = max(A.width, 1)
+        dev = A.device
+        vals = torch.zeros((npad, width), dtype=A.dtype, device=dev)
+        cols = torch.zeros((npad, width), dtype=torch.int32, device=dev)
+        valid = torch.zeros((npad, width), dtype=torch.bool, device=dev)
+        vals[:n, : A.width], cols[:n, : A.width], valid[:n, : A.width] = A.vals, A.cols, A.valid
+        vals[n:, 0] = 1.0
+        cols[n:, 0] = torch.arange(n, npad, dtype=torch.int32, device=dev)
+        valid[n:, 0] = True
+        A2 = EllMatrix(vals=vals, cols=cols, valid=valid, start_row=0, total_nrow=npad)
+    elif isinstance(A, DiaMatrix):
+        offs = list(A.offsets)
+        data = A.data
+        if 0 not in offs:
+            at = int(np.searchsorted(np.asarray(offs, dtype=np.int64), 0))
+            offs.insert(at, 0)
+            zero = torch.zeros((1, n), dtype=data.dtype, device=data.device)
+            data = torch.cat([data[:at], zero, data[at:]])
+        data2 = torch.zeros((len(offs), npad), dtype=data.dtype, device=data.device)
+        data2[:, :n] = data
+        data2[offs.index(0), n:] = 1.0
+        A2 = DiaMatrix(data=data2, offsets=tuple(offs), total_nrow=npad)
+    else:
+        raise TypeError("pad_problem_rows pads explicit matrices; the stencil operator shards by construction")
+
+    def padv(v):
+        return torch.cat([v, torch.zeros((npad - n,), dtype=v.dtype, device=v.device)])
+
+    return Problem(A=A2, b=padv(prob.b), x0=padv(prob.x0), xexact=padv(prob.xexact), total_nrow=npad,
+                   total_nnz_model=prob.total_nnz_model, total_nnz_exact=prob.total_nnz_exact)
+
+
 def unpermute(x, perm) -> np.ndarray:
     """A solve-basis vector (tensor or array) in the file's row order."""
     x = x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)

@@ -6,7 +6,9 @@
   including self. The matrix never materialises.
 - :class:`EllMatrix`, the general explicit matrix in padded ELL, and
   :class:`DiaMatrix`, diagonal storage for banded matrices (the reference's
-  CSR, HPC_Sparse_Matrix.hpp:56-66, in fixed-width layouts).
+  CSR, HPC_Sparse_Matrix.hpp:56-66, in fixed-width layouts); an EllMatrix
+  with ``start_row`` is a rank's row block, and :class:`DiaRows` a
+  DiaMatrix's.
 
 Each ``matvec`` here is the plain torch version: the CPU path, and what the
 CUDA kernels are held against on the card (K1 for the stencil,
@@ -366,3 +368,60 @@ class DiaMatrix:
                 r = torch.arange(lo, hi, device=self.device)
                 dense[r, r + off] = self.data[d, lo:hi]
         return dense
+
+
+def band(offsets) -> tuple:
+    """(bw_lo, bw_hi): how far a DIA band reaches below and above the
+    diagonal (the extreme negative and positive offsets, 0 if none)."""
+    offs = tuple(offsets)
+    return (max(0, -min(offs)), max(0, max(offs))) if offs else (0, 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class DiaRows:
+    """Rows [start_row, start_row + L) of a DiaMatrix: one rank's row block
+    (``parallel.cg.shard_problem``). ``data`` (ndiag, L) is the matrix's
+    data over those rows. Row i reads the rank's extended vector
+    x_ext = [bw_lo rows below | its L rows | bw_hi rows above]
+    (``parallel.halo.BandStrips``, zero beyond the global ends):
+    y[i] = sum_d data[d, i] * x_ext[i + bw_lo + offsets[d]]."""
+
+    data: torch.Tensor  # (ndiag, L)
+    offsets: tuple
+    start_row: int
+    total_nrow: int
+
+    @property
+    def local_nrow(self) -> int:
+        return self.data.shape[1]
+
+    @property
+    def ndiag(self) -> int:
+        return self.data.shape[0]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.data.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    @property
+    def bw_lo(self) -> int:
+        return band(self.offsets)[0]
+
+    @property
+    def bw_hi(self) -> int:
+        return band(self.offsets)[1]
+
+    def matvec(self, x_ext: torch.Tensor) -> torch.Tensor:
+        """y = A[rows] @ x from the extended vector: one sliced multiply-add
+        per diagonal, in offset order (the DIA kernel's order and
+        roundings). Every term is added, the zero fill beyond the global
+        ends included."""
+        L, lo = self.local_nrow, self.bw_lo
+        y = torch.zeros((L,), dtype=torch.promote_types(self.dtype, x_ext.dtype), device=x_ext.device)
+        for d, off in enumerate(self.offsets):
+            y += self.data[d] * x_ext[lo + off : lo + off + L]
+        return y

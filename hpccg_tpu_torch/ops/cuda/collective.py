@@ -1,26 +1,33 @@
-"""The collective whole-solve kernels K15 and K16 (``csrc/collective.cu``):
-wrappers, plain versions and launch counters.
+"""The collective whole-solve kernels K15 and K16 (``csrc/collective.cu``)
+and K17 (``csrc/collective_dia.cu``): wrappers, plain versions and launch
+counters.
 
 - K15 ``cg_collective``: methods ``cg`` (the reference recurrence, two
   allreduces per iteration) and ``cg1`` (Chronopoulos-Gear, one)
   (``collective_kernel.py:_kernel``);
 - K16 ``cg_collective_pipelined``: pipelined CG (Ghysels-Vanroose), the
   allreduce in flight while the stencil applies
-  (``collective_kernel.py:_kernel_pipelined``).
+  (``collective_kernel.py:_kernel_pipelined``);
+- K17 ``cg_collective_dia``: K15's cg and cg1 on a banded explicit matrix
+  whose rows are block-sharded (``collective_kernel.py:_kernel_dia``), the
+  halo being band strips of rows.
 
-Each solves the z-stacked stencil problem of every rank of a mesh in one
+K15/K16 solve the z-stacked stencil problem of every rank of a mesh in one
 launch. ``b`` and ``x0`` are sharded vectors: tuples of flat per-rank
 tensors (rank r's block of ``op``'s local dims), as
-``parallel.cg.generate_problem_sharded`` gives them. The result is a
-CGResult whose x is sharded the same way.
+``parallel.cg.generate_problem_sharded`` gives them. K17 takes the
+matrix's per-rank :class:`DiaRows` and sharded b and x0 as
+``parallel.cg.shard_problem`` gives them. The result is a CGResult whose x
+is sharded the same way.
 
 The plain version is the sharded recurrence of ``parallel.cg`` with
 backend ``stencil``: the halo'd plain matvec, the ranks' partials summed in
-rank order. A wrapper runs it only when the shards lie on the CPU; for
-CUDA shards it launches the kernel or raises, and counts its launches in
-``<wrapper>.launches``. Every rank of a launch must share one card: a mesh
-across cards raises NotImplementedError (the multi-card launch, with peer
-pointer tables, is queued in ROADMAP). float32 and float64 only: bfloat16
+rank order; K17's runs it on the plain dia-halo matvec (``DiaRows.matvec``
+over ``parallel.halo.BandStrips``). A wrapper runs it only when the shards
+lie on the CPU; for CUDA shards it launches the kernel or raises, and
+counts its launches in ``<wrapper>.launches``. Every rank of a launch must
+share one card: a mesh across cards raises NotImplementedError (the
+multi-card launch, with peer pointer tables, is queued in ROADMAP). float32 and float64 only: bfloat16
 raises ValueError (the JAX kernels' allreduce rows are in the vector dtype,
 and the JAX package makes no bfloat16 claim for them).
 """
@@ -29,25 +36,26 @@ from __future__ import annotations
 
 import torch
 
-from hpccg_tpu_torch.operators import StencilOperator
+from hpccg_tpu_torch.operators import DiaRows, StencilOperator, band
 from hpccg_tpu_torch.ops.cuda.build import check_launch, load_library
+from hpccg_tpu_torch.ops.cuda.dia import MAX_DIAGS
 
 METHODS = {"cg": 0, "cg1": 1, "pipecg": 2}
-# rows of the kernel's pointer table; the same order as csrc/collective.cu
-(P_B, P_X0, P_X, P_R, P_P, P_S, P_U, P_Z, P_Q, P_H, P_PARTS, P_TABLE, P_CTR) = range(13)
-NKIND, NCTR = 13, 16
+# rows of the kernels' pointer table; the same order as csrc/collective.cuh
+(P_B, P_X0, P_X, P_R, P_P, P_S, P_U, P_Z, P_Q, P_H, P_PARTS, P_TABLE, P_CTR, P_DATA) = range(14)
+NKIND, NCTR = 14, 16
 VECTORS = {"cg": (P_X, P_R, P_P, P_S), "cg1": (P_X, P_R, P_P, P_S, P_U),
            "pipecg": (P_X, P_R, P_P, P_S, P_U, P_Z, P_Q)}
 # how long a spin-wait in the kernel may last before it gives up: far above
 # any wait of a healthy solve, far below a hung chip_smoke
 WAIT_NS = 5_000_000_000
-# error-word sites (csrc/collective.cu)
+# error-word sites (csrc/collective.cuh)
 SITES = {1: "rank barrier", 2: "rank partials", 3: "allreduce table"}
 
 
-def _check(op: StencilOperator, bs, x0s) -> torch.device:
-    """Raise unless (bs, x0s) are what the kernel takes; returns their one
-    device."""
+def _check(nrow: int, bs, x0s) -> torch.device:
+    """Raise unless (bs, x0s), shards of ``nrow`` rows, are what the kernels
+    take; returns their one device."""
     bs, x0s = tuple(bs), tuple(x0s)
     if not bs or len(bs) != len(x0s):
         raise ValueError(f"b has {len(bs)} shards and x0 {len(x0s)}")
@@ -58,8 +66,8 @@ def _check(op: StencilOperator, bs, x0s) -> torch.device:
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"the collective kernels take float32 or float64, got {dtype}")
     for v in bs + x0s:
-        if v.dtype != dtype or tuple(v.shape) != (op.local_nrow,) or not v.is_contiguous():
-            raise ValueError(f"every shard must be a contiguous ({op.local_nrow},) {dtype} tensor, got "
+        if v.dtype != dtype or tuple(v.shape) != (nrow,) or not v.is_contiguous():
+            raise ValueError(f"every shard must be a contiguous ({nrow},) {dtype} tensor, got "
                              f"{tuple(v.shape)} {v.dtype}")
     devices = {v.device for v in bs + x0s}
     if len(devices) > 1:
@@ -94,21 +102,73 @@ def work_items(op: StencilOperator) -> int:
     return load_library().hpccg_collective_work_items(op.nx, op.ny, op.nz)
 
 
+def _resident(resident: int, ndev: int, what: str) -> int:
+    """The resident blocks a query returned, or raise: no cooperative grid,
+    or fewer blocks than ranks (nothing falls back)."""
+    lib = load_library()
+    if (lib.hpccg_collective_layout(0), lib.hpccg_collective_layout(1)) != (NCTR, NKIND):
+        raise RuntimeError("collective kernel: the library's counter / pointer layout differs from this module's")
+    if resident <= 0:
+        raise RuntimeError(f"{what}: no cooperative grid (CUDA error {-resident})")
+    if resident < ndev:
+        raise ValueError(f"a mesh of {ndev} ranks needs at least {ndev} resident blocks; this card holds "
+                         f"{resident} of the {what}")
+    return resident
+
+
 def blocks_per_rank(op: StencilOperator, ndev: int, dtype, method: str) -> int:
     """Blocks of each rank in the launch: the rank's work items, capped by
     the card's resident blocks shared among ``ndev`` ranks. A mesh larger
     than the resident grid raises (nothing falls back)."""
-    lib = load_library()
-    if (lib.hpccg_collective_layout(0), lib.hpccg_collective_layout(1)) != (NCTR, NKIND):
-        raise RuntimeError("collective kernel: the library's counter / pointer layout differs from this module's")
-    resident = lib.hpccg_collective_resident_blocks(0 if dtype == torch.float32 else 1, op.stencil.value,
-                                                    METHODS[method])
-    if resident <= 0:
-        raise RuntimeError(f"collective kernel: no cooperative grid (CUDA error {-resident})")
-    if resident < ndev:
-        raise ValueError(f"a mesh of {ndev} ranks needs at least {ndev} resident blocks; this card holds "
-                         f"{resident} of the collective kernel")
-    return min(work_items(op), resident // ndev)
+    resident = load_library().hpccg_collective_resident_blocks(0 if dtype == torch.float32 else 1,
+                                                               op.stencil.value, METHODS[method])
+    return min(work_items(op), _resident(resident, ndev, "collective kernel") // ndev)
+
+
+class _Scratch:
+    """The device state of one collective launch: the solve vectors, the
+    landing buffers, the partials, the allreduce tables, the counters, the
+    trace, the stats and the error word, and the pointer table that names
+    them per rank."""
+
+    def __init__(self, bs, x0s, kinds, landing_shape, bpr: int, max_iter: int, data=None):
+        dev, dtype, ndev, n = bs[0].device, bs[0].dtype, len(bs), bs[0].numel()
+        self.state = torch.zeros((len(kinds), ndev, n), dtype=dtype, device=dev)
+        # the landing buffers a rank's neighbours push into; zero at the global ends
+        self.landing = torch.zeros((ndev, *landing_shape), dtype=dtype, device=dev)
+        self.parts = torch.empty((ndev, 2 * bpr), dtype=dtype, device=dev)
+        self.table = torch.zeros((ndev, 2, ndev, 2), dtype=dtype, device=dev)
+        self.ctr = torch.zeros((ndev, NCTR), dtype=torch.int32, device=dev)
+        self.trace = torch.full((max(max_iter, 1),), float("nan"), dtype=dtype, device=dev)
+        self.stats = torch.zeros((4,), dtype=dtype, device=dev)
+        self.err = torch.zeros((4,), dtype=torch.int32, device=dev)
+        rows = [[0] * ndev for _ in range(NKIND)]
+        for r in range(ndev):
+            rows[P_B][r], rows[P_X0][r] = bs[r].data_ptr(), x0s[r].data_ptr()
+            for j, kind in enumerate(kinds):
+                rows[kind][r] = self.state[j, r].data_ptr()
+            rows[P_H][r] = self.landing[r].data_ptr()
+            rows[P_PARTS][r] = self.parts[r].data_ptr()
+            rows[P_TABLE][r] = self.table[r].data_ptr()
+            rows[P_CTR][r] = self.ctr[r].data_ptr()
+            if data is not None:
+                rows[P_DATA][r] = data[r].data_ptr()
+        self.ptrs = torch.tensor(rows, dtype=torch.int64, device=dev)
+
+    def result(self, wait_ns: int, what: str):
+        """Synchronises to read the error word, raises RuntimeError if a wait
+        gave up, else returns the CGResult (x sharded, kinds[0] being P_X)."""
+        from hpccg_tpu_torch.solver import CGResult
+
+        word = self.err.tolist()
+        if word[0]:
+            site = word[1]
+            where = SITES.get(site) or f"halo of phase {(site - 16) // 2} from {'above' if site % 2 else 'below'}"
+            raise RuntimeError(f"collective kernel: a wait gave up after {wait_ns} ns ({where}, rank {word[2]}, "
+                               f"expected count {word[3]}); {what}")
+        x = tuple(self.state[0, r] for r in range(self.state.shape[1]))
+        stats = self.stats
+        return CGResult(x=x, niters=stats[2].to(torch.int32), normr=stats[0], rtrans=stats[1], trace=self.trace)
 
 
 def launch(op: StencilOperator, bs, x0s, *, method: str, max_iter: int, tolerance: float = 0.0,
@@ -117,54 +177,26 @@ def launch(op: StencilOperator, bs, x0s, *, method: str, max_iter: int, toleranc
     the shards' card and the current stream; synchronises to read the
     kernel's error word and raises RuntimeError if a wait gave up. Returns
     a CGResult."""
-    from hpccg_tpu_torch.solver import CGResult
-
     dev = bs[0].device
     dtype = bs[0].dtype
     ndev = len(bs)
     bpr = blocks_per_rank(op, ndev, dtype, method)
-    kinds = VECTORS[method]
-    state = torch.zeros((len(kinds), ndev, op.local_nrow), dtype=dtype, device=dev)
-    # the (phase, from below / from above) planes a rank's neighbours push into; zero at the global ends
-    landing = torch.zeros((ndev, 5, 2, op.ny, op.nx), dtype=dtype, device=dev)
-    parts = torch.empty((ndev, 2 * bpr), dtype=dtype, device=dev)
-    table = torch.zeros((ndev, 2, ndev, 2), dtype=dtype, device=dev)
-    ctr = torch.zeros((ndev, NCTR), dtype=torch.int32, device=dev)
-    trace = torch.full((max(max_iter, 1),), float("nan"), dtype=dtype, device=dev)
-    stats = torch.zeros((4,), dtype=dtype, device=dev)
-    err = torch.zeros((4,), dtype=torch.int32, device=dev)
-    rows = [[0] * ndev for _ in range(NKIND)]
-    for r in range(ndev):
-        rows[P_B][r], rows[P_X0][r] = bs[r].data_ptr(), x0s[r].data_ptr()
-        for j, kind in enumerate(kinds):
-            rows[kind][r] = state[j, r].data_ptr()
-        rows[P_H][r] = landing[r].data_ptr()
-        rows[P_PARTS][r] = parts[r].data_ptr()
-        rows[P_TABLE][r] = table[r].data_ptr()
-        rows[P_CTR][r] = ctr[r].data_ptr()
-    ptrs = torch.tensor(rows, dtype=torch.int64, device=dev)
+    sc = _Scratch(bs, x0s, VECTORS[method], (5, 2, op.ny, op.nx), bpr, max_iter)
     lib = load_library()
     fn = lib.hpccg_collective_f32 if dtype == torch.float32 else lib.hpccg_collective_f64
     # the C entry points launch on the current device, which must be the stream's
     with torch.cuda.device(dev):
-        code = fn(ptrs.data_ptr(), trace.data_ptr(), stats.data_ptr(), err.data_ptr(), ndev, bpr, op.nx, op.ny,
-                  op.nz, op.stencil.value, METHODS[method], max_iter, float(tolerance), int(wait_ns),
+        code = fn(sc.ptrs.data_ptr(), sc.trace.data_ptr(), sc.stats.data_ptr(), sc.err.data_ptr(), ndev, bpr, op.nx,
+                  op.ny, op.nz, op.stencil.value, METHODS[method], max_iter, float(tolerance), int(wait_ns),
                   torch.cuda.current_stream(dev).cuda_stream)
     check_launch(code, "collective kernel (cooperative launch)")
-    word = err.tolist()
-    if word[0]:
-        site = word[1]
-        what = SITES.get(site) or f"halo of phase {(site - 16) // 2} from {'above' if site % 2 else 'below'}"
-        raise RuntimeError(f"collective kernel: a wait gave up after {wait_ns} ns ({what}, rank {word[2]}, "
-                           f"expected count {word[3]}); {ndev} ranks x {bpr} blocks")
-    x = tuple(state[0, r] for r in range(ndev))  # kinds[0] is P_X
-    return CGResult(x=x, niters=stats[2].to(torch.int32), normr=stats[0], rtrans=stats[1], trace=trace)
+    return sc.result(wait_ns, f"{ndev} ranks x {bpr} blocks")
 
 
 def _solve(wrapper, op, bs, x0s, method, max_iter, tolerance):
     if method not in METHODS:
         raise ValueError(f"unknown CG method {method!r}")
-    dev = _check(op, bs, x0s)
+    dev = _check(op.local_nrow, bs, x0s)
     if dev.type == "cpu":
         return solve_plain(op, bs, x0s, method=method, max_iter=max_iter, tolerance=tolerance)
     res = launch(op, tuple(bs), tuple(x0s), method=method, max_iter=max_iter, tolerance=tolerance)
@@ -190,3 +222,110 @@ def cg_collective_pipelined(op: StencilOperator, bs, x0s, *, max_iter: int, tole
 
 
 cg_collective_pipelined.launches = 0
+
+
+# ------------------------------------------------ K17: the banded matrix
+
+
+def _check_dia(blocks, bs, x0s) -> torch.device:
+    """Raise unless (blocks, bs, x0s) are what K17 takes; returns their one
+    device."""
+    blocks = tuple(blocks)
+    if not blocks or not all(isinstance(blk, DiaRows) for blk in blocks):
+        raise TypeError("K17 takes the DiaRows of each rank (parallel.cg.shard_problem)")
+    if len(blocks) != len(tuple(bs)):
+        raise ValueError(f"{len(blocks)} row blocks and {len(tuple(bs))} shards of b")
+    first = blocks[0]
+    L = first.local_nrow
+    if any(blk.offsets != first.offsets or blk.local_nrow != L for blk in blocks):
+        raise ValueError("every rank's row block must have the same rows and offsets")
+    dev = _check(L, bs, x0s)
+    for blk in blocks:
+        if blk.dtype != bs[0].dtype or blk.device != dev or not blk.data.is_contiguous():
+            raise ValueError(f"the row blocks must be contiguous {bs[0].dtype} tensors on {dev}")
+    bw_lo, bw_hi = band(first.offsets)
+    if max(bw_lo, bw_hi) > L:
+        raise ValueError(f"bandwidth ({bw_lo}/{bw_hi}) exceeds the {L}-row shard")
+    if not 1 <= first.ndiag <= MAX_DIAGS:
+        raise ValueError(f"{first.ndiag} diagonals: K17 takes 1 to {MAX_DIAGS}")
+    return dev
+
+
+def solve_plain_dia(blocks, bs, x0s, *, method: str, max_iter: int, tolerance: float = 0.0):
+    """Plain torch K17: the sharded recurrence of ``method`` on the plain
+    dia-halo matvec (``DiaRows.matvec`` over ``BandStrips``), the ranks'
+    partials summed in rank order."""
+    from hpccg_tpu_torch.ops.cuda.fused_cg import cg_finalize_plain
+    from hpccg_tpu_torch.parallel.halo import BandStrips
+    from hpccg_tpu_torch.solver import ONE_REDUCTION, cg_solve
+
+    blocks, bs, x0s = tuple(blocks), tuple(bs), tuple(x0s)
+    first = blocks[0]
+    strips = BandStrips(first.local_nrow, first.bw_lo, first.bw_hi, [v.device for v in bs], bs[0].dtype)
+
+    def matvec(vs):
+        return tuple(blk.matvec(x) for blk, x in zip(blocks, strips.fill(vs)))
+
+    if method == "cg":
+        return cg_solve(matvec, bs, x0s, max_iter=max_iter, tolerance=tolerance, finalize=cg_finalize_plain)
+    return ONE_REDUCTION[method](matvec, bs, x0s, max_iter=max_iter, tolerance=tolerance)
+
+
+def dia_resident_blocks(dtype, method: str) -> int:
+    """K17's blocks resident at once on the current card, or minus a CUDA
+    error code."""
+    return load_library().hpccg_collective_dia_resident_blocks(0 if dtype == torch.float32 else 1, METHODS[method])
+
+
+def dia_tile_rows() -> int:
+    """The rows a block of K17 takes at a time (threads x rows per thread)."""
+    return load_library().hpccg_collective_dia_block_rows()
+
+
+def dia_blocks_per_rank(L: int, ndev: int, dtype, method: str) -> int:
+    """K17's blocks per rank: one per tile of the rank's rows, capped by the
+    card's resident blocks shared among ``ndev`` ranks."""
+    resident = _resident(dia_resident_blocks(dtype, method), ndev, "collective DIA kernel")
+    return min(-(-L // dia_tile_rows()), resident // ndev)
+
+
+def launch_dia(blocks, bs, x0s, *, method: str, max_iter: int, tolerance: float = 0.0, wait_ns: int = WAIT_NS):
+    """One cooperative launch of K17 for every rank, on the shards' card and
+    the current stream; synchronises to read the error word and raises
+    RuntimeError if a wait gave up. Returns a CGResult."""
+    blocks, bs, x0s = tuple(blocks), tuple(bs), tuple(x0s)
+    dev, dtype, ndev = bs[0].device, bs[0].dtype, len(bs)
+    first = blocks[0]
+    L, bw_lo, bw_hi = first.local_nrow, first.bw_lo, first.bw_hi
+    bpr = dia_blocks_per_rank(L, ndev, dtype, method)
+    # (phase 0/1, from below / from above, strip rows) per rank
+    sc = _Scratch(bs, x0s, VECTORS[method], (2, 2, max(bw_lo, bw_hi, 1)), bpr, max_iter,
+                  data=[blk.data for blk in blocks])
+    offsets = torch.tensor(first.offsets, dtype=torch.int32, device=dev)
+    lib = load_library()
+    fn = lib.hpccg_collective_dia_f32 if dtype == torch.float32 else lib.hpccg_collective_dia_f64
+    # the C entry points launch on the current device, which must be the stream's
+    with torch.cuda.device(dev):
+        code = fn(sc.ptrs.data_ptr(), offsets.data_ptr(), sc.trace.data_ptr(), sc.stats.data_ptr(),
+                  sc.err.data_ptr(), ndev, bpr, L, first.ndiag, bw_lo, bw_hi, METHODS[method], max_iter,
+                  float(tolerance), int(wait_ns), torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(code, "collective DIA kernel (cooperative launch)")
+    return sc.result(wait_ns, f"{ndev} ranks x {bpr} blocks")
+
+
+def cg_collective_dia(blocks, bs, x0s, *, method: str = "cg1", max_iter: int, tolerance: float = 0.0):
+    """K17: the whole multi-rank solve of a banded matrix in one launch,
+    method ``cg`` or ``cg1`` (plain on the CPU). ``blocks``: each rank's
+    DiaRows; ``bs``/``x0s``: sharded vectors. Returns a CGResult with
+    sharded x."""
+    if method not in ("cg", "cg1"):
+        raise ValueError(f"K17 runs methods cg and cg1, got {method!r}")
+    dev = _check_dia(blocks, bs, x0s)
+    if dev.type == "cpu":
+        return solve_plain_dia(blocks, bs, x0s, method=method, max_iter=max_iter, tolerance=tolerance)
+    res = launch_dia(blocks, bs, x0s, method=method, max_iter=max_iter, tolerance=tolerance)
+    cg_collective_dia.launches += 1
+    return res
+
+
+cg_collective_dia.launches = 0

@@ -7,7 +7,10 @@ kernel's float64 instance, replaces ``:_kernel_dd``, which carries f64 as
 
 The kernel reads the :class:`DiaMatrix` as it is: ``data`` (ndiag, n) is
 already diagonal-major, so the only layout built for it is the int32 offsets
-on the card (:func:`prepare_dia`, once per matrix). ``spmv_dia`` runs its
+on the card (:func:`prepare_dia`, once per matrix). A rank's row block
+(:class:`DiaRows`, the dia-halo tier of ``parallel.cg``) runs the same
+kernel on the rank's extended vector: row i reads x[i + bw_lo + off], x of
+L + bw_lo + bw_hi entries (the window, ``PreparedDia.lo``/``hi``). ``spmv_dia`` runs its
 plain version only for tensors on the CPU; for CUDA tensors it launches the
 kernel (on the current stream, without synchronising) or raises, and counts
 its launches per instance: ``spmv_dia.launches_f32`` (K9) and
@@ -20,7 +23,9 @@ import dataclasses
 
 import torch
 
-from hpccg_tpu_torch.operators import DiaMatrix
+from typing import Union
+
+from hpccg_tpu_torch.operators import DiaMatrix, DiaRows
 from hpccg_tpu_torch.ops.cuda import check_tensors
 from hpccg_tpu_torch.ops.cuda.build import check_launch, load_library
 
@@ -29,32 +34,41 @@ MAX_DIAGS = 4096  # the structure chooser's cap; the kernel stages offsets in 10
 
 @dataclasses.dataclass(frozen=True)
 class PreparedDia:
-    """A DiaMatrix with its offsets as an int32 tensor on its device (the
-    analog of the JAX package's ``prepare_dia``, without the block padding
-    the TPU kernel needs)."""
+    """A DiaMatrix (or a rank's DiaRows) with its offsets as an int32 tensor
+    on its device (the analog of the JAX package's ``prepare_dia``, without
+    the block padding the TPU kernel needs). x has ``lo + n + hi`` entries
+    and row i reads x[i + lo + off]: lo = hi = 0 for a DiaMatrix, its band
+    for DiaRows."""
 
-    A: DiaMatrix
+    A: Union[DiaMatrix, DiaRows]
     offsets: torch.Tensor  # (ndiag,) int32
+    lo: int = 0
+    hi: int = 0
+
+    @property
+    def xlen(self) -> int:
+        return self.lo + self.A.local_nrow + self.hi
 
     def matvec(self, x: torch.Tensor, *, out=None) -> torch.Tensor:
         return spmv_dia(self, x, out=out)
 
 
-def prepare_dia(A: DiaMatrix) -> PreparedDia:
+def prepare_dia(A: Union[DiaMatrix, DiaRows]) -> PreparedDia:
     offs = list(A.offsets)
     if len(offs) != A.ndiag or any(b <= a for a, b in zip(offs, offs[1:])):
         raise ValueError("DiaMatrix offsets must be strictly increasing, one per row of data")
     if A.ndiag > MAX_DIAGS:
         raise ValueError(f"{A.ndiag} diagonals: the DIA kernel takes at most {MAX_DIAGS}")
     n = A.local_nrow
-    if offs and (offs[0] <= -n or offs[-1] >= n):
+    lo, hi = (A.bw_lo, A.bw_hi) if isinstance(A, DiaRows) else (0, 0)
+    if offs and (offs[0] <= -n - lo or offs[-1] >= n + hi):
         raise ValueError(f"offsets {offs[0]}..{offs[-1]} lie outside an {n}-row matrix")
-    return PreparedDia(A=A, offsets=torch.tensor(offs, dtype=torch.int32, device=A.device))
+    return PreparedDia(A=A, offsets=torch.tensor(offs, dtype=torch.int32, device=A.device), lo=lo, hi=hi)
 
 
 def spmv_dia_plain(P: PreparedDia, x: torch.Tensor, *, out=None) -> torch.Tensor:
     """Plain torch K9/K10: one sliced multiply-add per diagonal
-    (``DiaMatrix.matvec``)."""
+    (``DiaMatrix.matvec``, or ``DiaRows.matvec`` over the window)."""
     y = P.A.matvec(x)
     return y if out is None else out.copy_(y)
 
@@ -63,19 +77,19 @@ def spmv_dia(P: PreparedDia, x: torch.Tensor, *, out=None) -> torch.Tensor:
     """K9 (float32) / K10 (float64): y = A x (CUDA kernel; plain on the CPU)."""
     A = P.A
     n = A.local_nrow
-    check_tensors(x, x=(x, (n,), None), data=(A.data, (A.ndiag, n), None),
+    check_tensors(x, x=(x, (P.xlen,), None), data=(A.data, (A.ndiag, n), None),
                   offsets=(P.offsets, (A.ndiag,), torch.int32), out=(out, (n,), None))
     if x.device.type == "cpu":
         return spmv_dia_plain(P, x, out=out)
     if out is None:
-        out = torch.empty_like(x)
+        out = torch.empty((n,), dtype=x.dtype, device=x.device)
     if out.data_ptr() == x.data_ptr():
         raise ValueError("out must not alias x: rows read x at shifted positions")
     lib = load_library()
     fn = lib.hpccg_dia_f32 if x.dtype == torch.float32 else lib.hpccg_dia_f64
     # the C entry points launch on the current device, which must be the stream's
     with torch.cuda.device(x.device):
-        err = fn(A.data.data_ptr(), P.offsets.data_ptr(), A.ndiag, x.data_ptr(), out.data_ptr(), n,
+        err = fn(A.data.data_ptr(), P.offsets.data_ptr(), A.ndiag, x.data_ptr(), out.data_ptr(), n, P.lo, P.xlen,
                  torch.cuda.current_stream(x.device).cuda_stream)
     check_launch(err, "DIA kernel")
     if x.dtype == torch.float32:

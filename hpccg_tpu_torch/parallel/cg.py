@@ -12,6 +12,24 @@ shard_map; here one process drives every rank.
 ``backend="collective"`` runs the whole solve of every rank in one launch
 of K15 (cg, cg1) or K16 (pipecg) (``ops/cuda/collective.py``): halo planes
 and the allreduce travel through memory inside the kernel.
+
+Distributed file mode (ref main.cpp:161-179: read_HPC_row ->
+make_local_matrix -> MPI CG) solves a loaded explicit matrix with its rows
+block-sharded: rank r owns rows [r*L, (r+1)*L) (``shard_problem``; pad the
+row count first, ``io.pad_problem_rows``). Its tiers, in the order the CLI
+tries them:
+
+- ``dia-collective`` (``make_collective_dia_cg``): K17, the whole solve of
+  a banded DIA matrix in one launch, methods cg and cg1;
+- ``dia-halo`` (``make_distributed_dia_cg``): K9/K10 per rank on the rank's
+  extended vector (band strips, ``parallel.halo.BandStrips``);
+- ``ell-halo`` (``make_distributed_ell_halo_cg``): K11/K12 per rank with
+  columns remapped into the extended vector, for an ELL band that fits a
+  shard;
+- ``ell-allgather`` (``make_distributed_ell_cg``): K11/K12 per rank on the
+  gathered global x, for every other matrix.
+
+On the CPU every tier runs its kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -22,8 +40,16 @@ import torch
 
 from hpccg_tpu_torch.config import ProblemConfig
 from hpccg_tpu_torch.models.stencil import Problem
-from hpccg_tpu_torch.operators import StencilOperator
-from hpccg_tpu_torch.parallel.halo import HaloPlanes, kernel_matvec, kernel_matvec_pap, stencil_matvec_halo
+from hpccg_tpu_torch.operators import DiaMatrix, DiaRows, EllMatrix, StencilOperator, band
+from hpccg_tpu_torch.ops.cuda.dia import MAX_DIAGS, prepare_dia, spmv_dia
+from hpccg_tpu_torch.ops.cuda.ell import prepare_ell, spmv_ell
+from hpccg_tpu_torch.parallel.halo import (
+    BandStrips,
+    HaloPlanes,
+    kernel_matvec,
+    kernel_matvec_pap,
+    stencil_matvec_halo,
+)
 from hpccg_tpu_torch.parallel.mesh import Z_AXIS, Axis, Mesh, axis_size
 from hpccg_tpu_torch.solver import (
     ONE_REDUCTION,
@@ -185,3 +211,335 @@ def make_distributed_cg(
         return lambda b, x0: cg_solve(make_matvec(), shards(b), shards(x0), **kw)
     return lambda b, x0: cg_solve(make_matvec(), shards(b), shards(x0), finalize=cg_finalize_plain, **kw)
 
+
+
+# ------------------------------------------------------ distributed file mode
+
+
+def _row_block(n: int, ndev: int) -> int:
+    if n % ndev:
+        raise ValueError(f"{n} rows do not divide a {ndev}-rank mesh; pad with "
+                         f"hpccg_tpu_torch.io.pad_problem_rows(prob, {ndev})")
+    return n // ndev
+
+
+def shard_matrix(A, mesh: Mesh) -> tuple:
+    """An assembled EllMatrix or DiaMatrix -> its per-rank row blocks, each
+    a contiguous copy on its rank's device: EllMatrix row blocks with
+    global columns (start_row = r*L, total_nrow = n), or DiaRows (the
+    (ndiag, L) column blocks of the data). A tuple of blocks is returned as
+    it is."""
+    if isinstance(A, tuple):
+        if len(A) != mesh.size:
+            raise ValueError(f"{len(A)} row blocks for a {mesh.size}-rank mesh")
+        return A
+    n = A.local_nrow
+    L = _row_block(n, mesh.size)
+    rows = [slice(r * L, (r + 1) * L) for r in range(mesh.size)]
+    if isinstance(A, DiaMatrix):
+        return tuple(DiaRows(data=A.data[:, sl].to(d).contiguous(), offsets=tuple(A.offsets), start_row=sl.start,
+                             total_nrow=n) for sl, d in zip(rows, mesh.devices))
+    if isinstance(A, EllMatrix):
+        if A.start_row != 0 or (A.total_nrow or n) != n:
+            raise ValueError("shard_matrix needs the assembled square matrix (start_row 0), not a row shard")
+        return tuple(EllMatrix(vals=A.vals[sl].to(d).contiguous(), cols=A.cols[sl].to(d).contiguous(),
+                               valid=A.valid[sl].to(d).contiguous(), start_row=sl.start, total_nrow=n)
+                     for sl, d in zip(rows, mesh.devices))
+    raise TypeError(f"shard_matrix takes an EllMatrix or DiaMatrix, got {type(A).__name__}")
+
+
+def shard_problem(prob: Problem, mesh: Mesh) -> Problem:
+    """An explicit-matrix problem on ``mesh`` (``hpccg_tpu.parallel.cg.
+    shard_problem``): the matrix as per-rank row blocks (``shard_matrix``)
+    and b, x0, xexact as sharded vectors (``Mesh.shard``)."""
+    return dataclasses.replace(prob, A=shard_matrix(prob.A, mesh), b=mesh.shard(prob.b), x0=mesh.shard(prob.x0),
+                               xexact=mesh.shard(prob.xexact))
+
+
+def _first(A):
+    """The matrix, or its first row block."""
+    return A[0] if isinstance(A, tuple) else A
+
+
+def _global_rows(A) -> int:
+    return sum(blk.local_nrow for blk in A) if isinstance(A, tuple) else A.local_nrow
+
+
+def dia_halo_plan(A, L: int):
+    """(ok, reason): can the DiaMatrix A (or its DiaRows) ride the dia-halo
+    tier on L-row shards? The band must fit one shard (neighbours only) and
+    K9 must take its diagonals (``hpccg_tpu.parallel.cg.dia_halo_plan``; its
+    unroll/pallas/dd tiers and their diagonal caps are TPU compile limits
+    with no counterpart here). The CLI's fallback and the solver's error
+    both ask this, so they agree."""
+    offs = _first(A).offsets
+    bw_lo, bw_hi = band(offs)
+    if bw_lo > L or bw_hi > L:
+        return False, f"bandwidth ({bw_lo}/{bw_hi}) exceeds the {L}-row shard: neighbour halo insufficient"
+    if len(offs) > MAX_DIAGS:
+        return False, f"{len(offs)} diagonals exceed the DIA kernel's {MAX_DIAGS}"
+    return True, ""
+
+
+def ell_band(A) -> tuple:
+    """(bw_lo, bw_hi) of an EllMatrix or its row blocks: how far the valid
+    entries reach below and above the diagonal (global rows)."""
+    lo = hi = 0
+    for blk in A if isinstance(A, tuple) else (A,):
+        rows = torch.arange(blk.local_nrow, device=blk.device)[:, None] + blk.start_row
+        offs = (blk.cols.long() - rows)[blk.valid]
+        if offs.numel():
+            lo, hi = max(lo, int(-offs.min())), max(hi, int(offs.max()))
+    return lo, hi
+
+
+def ell_halo_plan(A, L: int):
+    """(ok, reason): can the EllMatrix A (or its row blocks) ride the
+    ell-halo tier on L-row shards? Its band must fit one shard."""
+    bw_lo, bw_hi = ell_band(A)
+    if bw_lo > L or bw_hi > L:
+        return False, f"bandwidth ({bw_lo}/{bw_hi}) exceeds the {L}-row shard: neighbour halo insufficient"
+    return True, ""
+
+
+def _explicit_runner(method: str, replace_every: int, **kw):
+    """run(matvec, bs, x0s) -> CGResult of ``method`` on sharded vectors:
+    the reference recurrence with the finalize kernel (its plain version on
+    the CPU), or a one-reduction method."""
+    check_method(method)
+    if method == "cg":
+        return lambda mv, bs, x0s: cg_solve(mv, bs, x0s, **kw)
+    run = _method_runner(method, replace_every)
+    return lambda mv, bs, x0s: run(mv, bs, x0s, **kw)
+
+
+def _sharded(mesh: Mesh, v) -> tuple:
+    return mesh.shard(v) if isinstance(v, torch.Tensor) else tuple(v)
+
+
+class HaloTier:
+    """The sharded A v of a halo tier: ``dia-halo`` runs K9/K10 on each
+    rank's DiaRows, ``ell-halo`` K11/K12 on each rank's ELL rows with their
+    columns remapped into the extended vector (``ell_window``); both read
+    the rank's extended vector from ``strips`` (plain versions on the
+    CPU). Calling it fills the strips, then applies the kernels."""
+
+    def __init__(self, blocks, devices, tier: str):
+        if tier == "ell-halo":
+            bw_lo, bw_hi = ell_band(blocks)
+            self.kernels = [(prepare_ell(ell_window(blk, bw_lo, bw_hi)), spmv_ell) for blk in blocks]
+        else:
+            bw_lo, bw_hi = blocks[0].bw_lo, blocks[0].bw_hi
+            self.kernels = [(prepare_dia(blk), spmv_dia) for blk in blocks]
+        self.strips = BandStrips(blocks[0].local_nrow, bw_lo, bw_hi, devices, blocks[0].dtype)
+
+    def apply(self, exts, outs=None) -> tuple:
+        """Each rank's kernel on its extended vector, into ``outs``."""
+        outs = outs or (None,) * len(exts)
+        return tuple(kernel(S, x, out=o) for (S, kernel), x, o in zip(self.kernels, exts, outs))
+
+    def __call__(self, vs) -> tuple:
+        return self.apply(self.strips.fill(vs))
+
+
+def make_distributed_dia_cg(mesh: Mesh, *, max_iter: int, tolerance: float = 0.0, method: str = "cg",
+                            replace_every: int = 0):
+    """The dia-halo tier: solve(A, b, x0) -> CGResult for a banded DiaMatrix
+    with its rows block-sharded (``hpccg_tpu.parallel.cg.
+    make_distributed_dia_cg``). Each matvec fills the band strips (rank r
+    reads the last bw_lo rows of r-1 and the first bw_hi of r+1; zero at
+    the global ends) and runs K9/K10 on each rank's extended vector. The
+    JAX package runs a zero-halo kernel and adds the strips as boundary
+    corrections, so that XLA can overlap the ppermute; here the computation
+    is ported, not that workaround, and the product equals the
+    single-device one bit for bit.
+
+    ``A``: the assembled DiaMatrix (rows must divide the mesh: pad with
+    ``io.pad_problem_rows``) or its DiaRows; ``b``/``x0``: global or
+    sharded. Methods cg, cg1, pipecg and ``replace_every`` as
+    ``make_distributed_cg``. Raises ValueError when ``dia_halo_plan``
+    refuses the band."""
+    run = _explicit_runner(method, replace_every, max_iter=max_iter, tolerance=tolerance)
+
+    def solve(A, b, x0):
+        blocks = shard_matrix(A, mesh)
+        if not isinstance(blocks[0], DiaRows):
+            raise TypeError("make_distributed_dia_cg needs a DiaMatrix")
+        ok, reason = dia_halo_plan(blocks, blocks[0].local_nrow)
+        if not ok:
+            raise ValueError(f"{reason} — use make_distributed_ell_cg")
+        return run(HaloTier(blocks, mesh.devices, "dia-halo"), _sharded(mesh, b), _sharded(mesh, x0))
+
+    return solve
+
+
+def _ell_blocks(A, mesh: Mesh) -> tuple:
+    blocks = shard_matrix(A, mesh)
+    if not isinstance(blocks[0], EllMatrix):
+        raise TypeError("the ELL tiers need an EllMatrix")
+    return blocks
+
+
+def ell_allgather_matvec(blocks, mesh: Mesh):
+    """The sharded A v of the ell-allgather tier: the global x gathered
+    onto each rank's device (once when every rank shares one), then
+    K11/K12 (plain on the CPU) on the rank's rows with global columns."""
+    slots = [prepare_ell(blk) for blk in blocks]  # ncols = n: the global x
+
+    def matvec(vs):
+        if mesh.one_device:
+            xs = [torch.cat(vs)] * len(vs)
+        else:
+            xs = [torch.cat([v.to(d) for v in vs]) for d in mesh.devices]
+        return tuple(spmv_ell(S, x) for S, x in zip(slots, xs))
+
+    return matvec
+
+
+def make_distributed_ell_cg(mesh: Mesh, *, max_iter: int, tolerance: float = 0.0, method: str = "cg",
+                            replace_every: int = 0):
+    """The ell-allgather tier: solve(A, b, x0) -> CGResult for any
+    EllMatrix with its rows block-sharded. Each matvec gathers the global x
+    onto each rank's device and runs K11/K12 on the rank's rows with global
+    columns (``EllSlots.ncols = n``). It stands for the JAX package's
+    ``make_distributed_ell_cg`` and for its wide-scatter tiers
+    ``make_distributed_stack_cg`` and ``make_distributed_dynwin_cg``, which
+    all-gather x too (``hpccg_tpu/parallel/cg.py:875``, ``:972``): their
+    strip and window layouts exist because the TPU has no gather. Arguments
+    as ``make_distributed_dia_cg``."""
+    run = _explicit_runner(method, replace_every, max_iter=max_iter, tolerance=tolerance)
+
+    def solve(A, b, x0):
+        blocks = _ell_blocks(A, mesh)
+        return run(ell_allgather_matvec(blocks, mesh), _sharded(mesh, b), _sharded(mesh, x0))
+
+    return solve
+
+
+def ell_window(blk: EllMatrix, bw_lo: int, bw_hi: int) -> EllMatrix:
+    """A row block with its columns remapped into its rank's extended
+    vector: column c becomes c - (start_row - bw_lo), so x_ext[0] is global
+    row start_row - bw_lo; ``start_row`` is then bw_lo and ``total_nrow``
+    the extended length. Invalid slots keep column 0."""
+    cols = torch.where(blk.valid, blk.cols - (blk.start_row - bw_lo), 0).to(torch.int32)
+    return dataclasses.replace(blk, cols=cols, start_row=bw_lo, total_nrow=bw_lo + blk.local_nrow + bw_hi)
+
+
+def make_distributed_ell_halo_cg(mesh: Mesh, *, max_iter: int, tolerance: float = 0.0, method: str = "cg",
+                                 replace_every: int = 0):
+    """The ell-halo tier: solve(A, b, x0) -> CGResult for an EllMatrix whose
+    band fits one shard, with its rows block-sharded. Each matvec fills the
+    band strips and runs K11/K12 on each rank's rows with their columns
+    remapped into the extended vector (``ell_window``). It stands for the
+    JAX package's ``make_distributed_gell_cg`` (the windowed gather tier,
+    ``hpccg_tpu/parallel/cg.py:763``), whose chunk-scanning window exists
+    because the TPU has no gather. Raises ValueError when ``ell_halo_plan``
+    refuses the band; other arguments as ``make_distributed_dia_cg``."""
+    run = _explicit_runner(method, replace_every, max_iter=max_iter, tolerance=tolerance)
+
+    def solve(A, b, x0):
+        blocks = _ell_blocks(A, mesh)
+        ok, reason = ell_halo_plan(blocks, blocks[0].local_nrow)
+        if not ok:
+            raise ValueError(f"{reason} — use make_distributed_ell_cg")
+        return run(HaloTier(blocks, mesh.devices, "ell-halo"), _sharded(mesh, b), _sharded(mesh, x0))
+
+    return solve
+
+
+ACROSS_CARDS = ("the collective kernels run every rank of a launch on one card; the multi-card launch is queued "
+                "in ROADMAP")
+
+
+def collective_dia_supported(A, mesh: Mesh, method: str = "cg1"):
+    """(ok, reason) for K17 on ``mesh``: the one predicate that the CLI's
+    fallback and ``make_collective_dia_cg`` share
+    (``hpccg_tpu.parallel.cg.collective_dia_supported``). It needs float32
+    or float64 data, rows that divide the ranks, a band that fits one
+    shard, at most MAX_DIAGS diagonals, every rank on one card and, on
+    CUDA, as many resident blocks as ranks. The reason names the fallback.
+    JAX's f32-only rule (Mosaic has no f64), its rows % (ndev*128) rule
+    (the TPU's lane width), its 128-diagonal cap (trace-time unroll) and its
+    VMEM fit are TPU limits and are not carried over."""
+    first, ndev = _first(A), mesh.size
+    if first.dtype not in (torch.float32, torch.float64):
+        return False, f"the collective DIA kernel takes float32 or float64, not {first.dtype}"
+    n = _global_rows(A)
+    if n % ndev:
+        return False, (f"{n} rows do not divide {ndev} ranks; pad with hpccg_tpu_torch.io.pad_problem_rows(prob, "
+                       f"{ndev})")
+    L = n // ndev
+    bw_lo, bw_hi = band(first.offsets)
+    if max(bw_lo, bw_hi) > L:
+        return False, (f"bandwidth ({bw_lo}/{bw_hi}) exceeds the {L}-row shard: neighbour strips insufficient — "
+                       "use make_distributed_ell_cg")
+    if first.ndiag > MAX_DIAGS:
+        return False, f"{first.ndiag} diagonals exceed the kernel's {MAX_DIAGS} — use make_distributed_ell_cg"
+    if not mesh.one_device:
+        return False, f"{ACROSS_CARDS} — use make_distributed_dia_cg"
+    if mesh.devices[0].type == "cuda":
+        from hpccg_tpu_torch.ops.cuda.collective import dia_resident_blocks
+
+        with torch.cuda.device(mesh.devices[0]):
+            resident = dia_resident_blocks(first.dtype, method)
+        if resident < ndev:
+            return False, (f"{ndev} ranks need {ndev} resident blocks; this card holds {max(resident, 0)} of the "
+                           "collective DIA kernel — use make_distributed_dia_cg")
+    return True, "ok"
+
+
+def make_collective_dia_cg(mesh: Mesh, *, max_iter: int, tolerance: float = 0.0, method: str = "cg1"):
+    """The dia-collective tier: solve(A, b, x0) -> CGResult, the whole
+    multi-rank solve of a banded DiaMatrix in one launch of K17
+    (``ops/cuda/collective.py:cg_collective_dia``; its plain version on the
+    CPU). Methods ``cg`` (the reference recurrence, two allreduces per
+    iteration) and ``cg1`` (one), as the JAX package's
+    ``make_collective_dia_cg``; the band strips and the allreduce travel
+    through memory inside the kernel, and ``replace_every`` does not apply.
+    A mesh across cards raises NotImplementedError; anything else
+    ``collective_dia_supported`` refuses raises ValueError with its
+    reason. ``A``: the assembled DiaMatrix or its DiaRows."""
+    if method not in ("cg", "cg1"):
+        raise ValueError(f"the collective DIA kernel runs methods cg and cg1, got {method!r}")
+    from hpccg_tpu_torch.ops.cuda.collective import cg_collective_dia
+
+    def solve(A, b, x0):
+        if not isinstance(_first(A), (DiaMatrix, DiaRows)):
+            raise TypeError("make_collective_dia_cg needs a DiaMatrix")
+        if not mesh.one_device and all(d.type == "cuda" for d in mesh.devices):
+            raise NotImplementedError(ACROSS_CARDS)
+        ok, reason = collective_dia_supported(A, mesh, method)
+        if not ok:
+            raise ValueError(reason)
+        return cg_collective_dia(shard_matrix(A, mesh), _sharded(mesh, b), _sharded(mesh, x0), method=method,
+                                 max_iter=max_iter, tolerance=tolerance)
+
+    return solve
+
+
+# the tiers' labels, as the CLI prints them after "distributed:"
+FILE_TIERS = ("dia-collective", "dia-halo", "ell-halo", "ell-allgather")
+
+
+def make_distributed_spmv_bench(mesh: Mesh, A, tier: str):
+    """step() running one SpMV of ``tier`` on every rank, for slope timing
+    of the CLI's SPARSEMV row in distributed file mode
+    (``hpccg_tpu.parallel.cg.make_distributed_spmv_bench``). As the
+    reference's TICK/TOCK brackets HPC_sparsemv and times the exchange
+    apart (times[5], HPCCG.cpp:394), the halo tiers' strips are filled once,
+    outside the step: it times K9/K10 or K11/K12 on each rank's extended
+    vector. ell-allgather keeps its gather in the step: there the gather
+    is the matvec's structure. dia-collective has no standalone SpMV: it
+    times the dia-halo tier's kernel. ``A``: the row blocks (or the
+    assembled matrix)."""
+    if tier not in FILE_TIERS:
+        raise ValueError(f"unknown distributed file tier {tier!r} (choose from {FILE_TIERS})")
+    blocks = shard_matrix(A, mesh)
+    xs = tuple(torch.ones((blk.local_nrow,), dtype=blk.dtype, device=d) for blk, d in zip(blocks, mesh.devices))
+    if tier == "ell-allgather":
+        matvec = ell_allgather_matvec(blocks, mesh)
+        return lambda: matvec(xs)
+    halo = HaloTier(blocks, mesh.devices, "ell-halo" if tier == "ell-halo" else "dia-halo")
+    ext = halo.strips.fill(xs)
+    outs = tuple(torch.empty_like(x) for x in xs)
+    return lambda: halo.apply(ext, outs)

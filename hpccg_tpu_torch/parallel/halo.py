@@ -1,5 +1,5 @@
-"""Halo exchange and the halo'd stencil matvecs (ref exchange_externals.cpp:
-51-131; ``hpccg_tpu.parallel.halo``), over a sharded vector.
+"""Halo exchange and the halo'd matvecs (ref exchange_externals.cpp:51-131;
+``hpccg_tpu.parallel.halo``), over a sharded vector.
 
 For the z-stacked stencil problem each rank exchanges exactly its first and
 last nx*ny plane with at most two neighbours. On the single-controller mesh
@@ -14,6 +14,15 @@ stencil's boundary clipping.
   one-rank mesh (the kernels' domain boundary).
 - ``kernel_matvec`` / ``kernel_matvec_pap``: K1, K2 or K7 on each rank with
   its two planes; K3 takes four (``solver.cg_solve_fused``).
+
+For an explicit banded matrix with its rows block-sharded (distributed file
+mode, ``parallel.cg``) the halo is band strips instead: rank r reads the
+last bw_lo rows of rank r-1 and the first bw_hi rows of rank r+1, where
+bw_lo / bw_hi is how far the band reaches below / above the diagonal (the
+JAX package moves them with ppermute, ``hpccg_tpu/parallel/cg.py:1209``).
+
+- :class:`BandStrips`: per-rank extended vectors [bw_lo | L | bw_hi],
+  allocated once and refilled before each apply; zero at the global ends.
 """
 
 from __future__ import annotations
@@ -102,3 +111,29 @@ def kernel_matvec_pap(op: StencilOperator, halo: HaloPlanes, vs, outs, partials,
     for i, (v, h, out) in enumerate(zip(vs, halo.planes2(vs), outs)):
         k2(op, g(v), h, out=g(out), partials=partials.parts[i], active=active.to(v.device))
     return partials.gather()
+
+
+class BandStrips:
+    """Each rank's extended vector x_ext = [bw_lo rows of the rank below |
+    its own L rows | bw_hi rows of the rank above], the x that the windowed
+    DIA kernel (K9/K10 on ``DiaRows``) and the ell-halo tier's K11/K12 read.
+    The buffers are allocated once; ``fill`` copies a sharded vector into
+    them before each apply. Both strips stay zero at the global ends (the
+    band's clipping). The band must fit one shard (bw_lo, bw_hi <= L)."""
+
+    def __init__(self, L: int, bw_lo: int, bw_hi: int, devices, dtype):
+        if bw_lo > L or bw_hi > L:
+            raise ValueError(f"a band of {bw_lo}/{bw_hi} rows does not fit {L}-row shards")
+        self.L, self.bw_lo, self.bw_hi = L, bw_lo, bw_hi
+        self.ext = [torch.zeros((bw_lo + L + bw_hi,), dtype=dtype, device=d) for d in devices]
+
+    def fill(self, vs) -> list:
+        """The extended vectors of the sharded vector ``vs``."""
+        L, lo, hi, n = self.L, self.bw_lo, self.bw_hi, len(self.ext)
+        for r, ext in enumerate(self.ext):
+            ext[lo : lo + L].copy_(vs[r])
+            if lo and r > 0:
+                ext[:lo].copy_(vs[r - 1][L - lo :])
+            if hi and r < n - 1:
+                ext[lo + L :].copy_(vs[r + 1][:hi])
+        return self.ext

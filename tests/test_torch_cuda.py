@@ -453,3 +453,104 @@ def test_distributed_backends_across_cards(cuda_device):
         assert [x.device for x in res.x] == list(mesh.devices)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_distributed_cg(cfg, mesh, max_iter=5, backend="collective")(prob.b, prob.x0)
+
+
+# ------------------------------- distributed file mode: K9/K10's window, K17
+
+from hpccg_tpu_torch.models.stencil import Problem  # noqa: E402
+from hpccg_tpu_torch.ops.cuda.dia import prepare_dia  # noqa: E402
+from hpccg_tpu_torch.parallel import make_collective_dia_cg, shard_problem  # noqa: E402
+from hpccg_tpu_torch.parallel.halo import BandStrips  # noqa: E402
+
+
+def _band_problem(device, n, span, npairs, dtype, ndev, seed=0):
+    """A symmetric, diagonally dominant band of offsets 0 and +-o for npairs
+    scattered o within (0, span], b = A 1, sharded over ndev ranks of
+    ``device``."""
+    gen = torch.Generator().manual_seed(seed)
+    pos = sorted((torch.randperm(span, generator=gen)[:npairs] + 1).tolist())
+    offs = [-o for o in reversed(pos)] + [0] + pos
+    data = torch.zeros((len(offs), n), dtype=torch.float64)
+    data[npairs] = 2.0 * len(offs)
+    for j, o in enumerate(pos):
+        v = -0.1 - 0.9 * torch.rand(n - o, generator=gen, dtype=torch.float64)
+        data[npairs + 1 + j, : n - o] = v  # A[i, i + o]
+        data[npairs - 1 - j, o:] = v  # A[i + o, i]
+    A = DiaMatrix(data=data.to(dtype), offsets=tuple(offs), total_nrow=n)
+    b = A.matvec(torch.ones(n, dtype=dtype))
+    prob = Problem(A=A, b=b, x0=torch.zeros_like(b), xexact=torch.ones_like(b), total_nrow=n, total_nnz_model=0,
+                   total_nnz_exact=0)
+    return shard_problem(prob, make_mesh(ndev, devices=[device] * ndev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_dia_window_matches_plain_bit_for_bit(cuda_device, dtype):
+    """K9/K10 on each rank's extended vector (the dia-halo tier) against the
+    windowed plain version: the same sums and roundings, bit for bit."""
+    prob = _band_problem(cuda_device, 4096, 300, 20, dtype, 4)
+    blk = prob.A[0]
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    xs = tuple(torch.randn(blk.local_nrow, generator=gen, device=cuda_device, dtype=dtype) for _ in prob.A)
+    ext = BandStrips(blk.local_nrow, blk.bw_lo, blk.bw_hi, [cuda_device] * 4, dtype).fill(xs)
+    before = _launches(cdia.spmv_dia)
+    for blk, x in zip(prob.A, ext):
+        P = prepare_dia(blk)
+        assert (P.lo, P.xlen) == (blk.bw_lo, blk.bw_lo + blk.local_nrow + blk.bw_hi)
+        got, want = cdia.spmv_dia(P, x), cdia.spmv_dia_plain(P, x)
+        assert torch.equal(got, want)
+    assert _launches(cdia.spmv_dia) == before + 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("method", ["cg", "cg1"])
+@pytest.mark.parametrize("ndev", [1, 2, 4])
+def test_collective_dia_matches_plain(cuda_device, ndev, method, dtype):
+    """K17 against its plain version with every rank on one card, a
+    symmetric band of +-200 over 1024-row shards: niters equal, the trace within WS_TRACE
+    above its floor (the solve stops there, on a tolerance between two of
+    the plain trace's entries), x within WS_X_RTOL, one launch per solve,
+    two solves bit-identical."""
+    prob = _band_problem(cuda_device, 1024 * ndev, 200, 6, dtype, ndev)
+    rtol, floor = WS_TRACE[dtype]
+    tr = col.solve_plain_dia(prob.A, prob.b, prob.x0, method=method, max_iter=30).trace
+    below = torch.nonzero(tr < floor * tr[0])
+    tol = 0.0 if below.numel() == 0 else float(torch.sqrt(tr[int(below[0]) - 1] * tr[int(below[0])]))
+    want = col.solve_plain_dia(prob.A, prob.b, prob.x0, method=method, max_iter=30, tolerance=tol)
+    before = col.cg_collective_dia.launches
+    got, again = (col.cg_collective_dia(prob.A, prob.b, prob.x0, method=method, max_iter=30, tolerance=tol)
+                  for _ in range(2))
+    torch.cuda.synchronize()
+    assert col.cg_collective_dia.launches == before + 2
+    n = int(want.niters) + 1
+    assert int(got.niters) == n - 1
+    torch.testing.assert_close(got.trace[:n], want.trace[:n], rtol=rtol, atol=0)
+    assert bool(torch.isnan(got.trace[n:]).all())
+    _x_close(torch.cat(got.x), torch.cat(want.x))
+    assert all(torch.equal(a, b) for a, b in zip(got.x, again.x)) and torch.equal(got.trace[:n], again.trace[:n])
+
+
+def test_collective_dia_bounded_wait_raises(cuda_device):
+    """A 2-rank K17 launch whose waits may last 0 ns gives up at the first
+    wait that is not already met: RuntimeError with the error word, no
+    hang; the card stays usable. 32768 rows per rank give each rank 32
+    blocks, whose rank barriers cannot all be met when first checked (with
+    one block per rank every wait can be, and the launch then passed once
+    on an H100)."""
+    prob = _band_problem(cuda_device, 65536, 200, 6, torch.float32, 2)
+    with pytest.raises(RuntimeError, match="gave up after 0 ns"):
+        col.launch_dia(prob.A, prob.b, prob.x0, method="cg1", max_iter=30, wait_ns=0)
+    torch.cuda.synchronize()
+    res = col.cg_collective_dia(prob.A, prob.b, prob.x0, method="cg1", max_iter=5)
+    assert int(res.niters) == 4
+
+
+def test_collective_dia_refuses_bf16_and_several_cards(cuda_device):
+    prob = _band_problem(cuda_device, 2048, 200, 6, torch.float32, 2)
+    blocks = tuple(dataclasses.replace(blk, data=blk.data.to(torch.bfloat16)) for blk in prob.A)
+    bf = tuple(v.to(torch.bfloat16) for v in prob.b)
+    with pytest.raises(ValueError, match="bfloat16"):
+        col.cg_collective_dia(blocks, bf, bf, max_iter=5)
+    if torch.cuda.device_count() > 1:
+        mesh = make_mesh(2)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            make_collective_dia_cg(mesh, max_iter=5)(tuple(blk for blk in prob.A), prob.b, prob.x0)

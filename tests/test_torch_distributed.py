@@ -272,8 +272,9 @@ def test_mesh_cli_matches_jax_cli(extra, jax_extra, capsys):
 
 def test_mesh_cli_messages(capsys):
     """JAX's messages: collective needs --mesh > 1; the whole-solve names are
-    not distributed backends; --refine is single-device; HxZ meshes and
-    file mode at --mesh > 1 are not ported."""
+    not distributed backends; --refine is single-device; HxZ meshes are not
+    ported. File mode at --mesh > 1 is (tests/test_torch_distributed_file.py):
+    a missing file is refused as on one device."""
     base = ["6", "5", "4", "--device", "cpu", "--json", "--skip-kernel-bench", "--max-iter", "10", "--quiet"]
     assert main(base + ["--backend", "collective"]) == 0
     assert "--backend collective needs --mesh > 1" in capsys.readouterr().err
@@ -284,4 +285,4 @@ def test_mesh_cli_messages(capsys):
     assert main(base + ["--mesh", "2x4"]) == 2
     assert "not yet ported" in capsys.readouterr().err
     assert main(["m.txt", "--device", "cpu", "--mesh", "2"]) == 2
-    assert "in file mode" in capsys.readouterr().err
+    assert "error: cannot read m.txt" in capsys.readouterr().err
