@@ -28,7 +28,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    version with 1, 2, 4, 6 and 8 ranks on the card, float32 and float64,
    on symmetric bands: scattered within +-200 at 2048 and 100000 rows per
    rank, the diagonal alone, a band as wide as the shard
-   (phase_collective_dia_kernels);
+   (phase_collective_dia_kernels); then K1-K4's bf16 instances against
+   theirs at the same shapes and at 256^3, 27- and 7-point, with and
+   without halo planes (vectors within 4 bf16 ulps of max|y|, partials
+   1e-3, p', x', r' bit for bit, repeats bit-identical;
+   phase_bf16_kernels); then the copy and write probe kernels against
+   theirs and against the library calls, bit for bit, at 1 GiB per array
+   (phase_probes);
 4. main paths, each with every count set to 0 just before it and
    read just after: (a) slice 1, make_cg on the generated 27-point float32
    problem at 100^3 (max_iter 150) on auto (= pallas_fused), pallas and
@@ -55,7 +61,14 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    iterations, on dia-collective (K17 cg and cg1, one launch per solve,
    also against its plain version), dia-halo (K9/K10), ell-halo and
    ell-allgather (K11/K12), against the single-device DIA solve; and the
-   permuted 64^3 f64 file after RCM on ell-halo;
+   permuted 64^3 f64 file after RCM on ell-halo; (g) slice 6, bf16 on
+   K1-K4 and the benchmark: make_cg at 256^3 bf16 (max_iter 50) on pallas
+   and pallas_fused (one K3 and one K4 launch per iteration) against the
+   bf16 streamkernel trace, make_distributed_cg in bf16 on auto (= pallas,
+   K2 with bf16 halo planes) on 4 ranks of 64^3 against the single-device
+   pallas solve, and ``hpccg_tpu_torch.bench --preset strong256 --dtype
+   bfloat16 --backend pallas_fused`` in process (K1/K3/K4 bf16 and both
+   probes);
 5. golden: the reference's 10^3 float64 run on pallas_fused, megakernel,
    streamkernel and pallas_dd, from an HPC-row file through the CLI (DIA)
    and through make_cg on the EllMatrix (ELL), as two 10x10x5 ranks on
@@ -68,9 +81,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    on a 64^3 float64 file (dia) and its randomly permuted twin (ell+rcm;
    ell with ``--no-reorder``), written by the port's writer, 149 iterations
    each; FILE --mesh 2 where the machine has two cards (one per rank; on
-   one card it prints that it did not run);
+   one card it prints that it did not run); the benchmark, ``python -m
+   hpccg_tpu_torch.bench --preset headline100`` and ``--preset strong256``
+   as subprocesses: one JSON line each with the keys, niters 149, a finite
+   value (phase_bench);
 7. timing: slope-timed us per CG iteration for each backend at 100^3 and
-   256^3 float32 and the whole-solve backends at 256^3 bfloat16 (CUDA
+   256^3 float32 and the whole-solve, pallas and pallas_fused backends at
+   256^3 bfloat16 (CUDA
    events, legs of 65 and 1025 iterations), the whole-solve kernels' device
    busy share at 100^3, and K1 against the plain matvec; at 128^3 float32
    and float64 the explicit solves (DIA, ELL, the ELL's plain version, the
@@ -88,7 +105,9 @@ path, max|kernel - plain|, its device ms and its plain version's (per
 launch; per CG iteration for K5, K6, K15, K16 and K17), the bound (the larger of
 the bytes it must move over 3.35 TB/s and its operations over the peak
 rate) and, where one PyTorch call computes the same function, that call's
-ms (conv3d for K1, a sparse CSR product for K9-K14; null elsewhere).
+ms (conv3d for K1 and its bf16 instance, a sparse CSR product for K9-K14,
+torch.add and torch.mul for the probes; null elsewhere). The bf16 rows
+(K1/bf16-K4/bf16) are timed at 256^3, the probes at 1 GiB per array.
 
 Each phase prints its seconds. The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -135,16 +154,25 @@ KERNELS = {
                                              "hpccg_tpu/ops/pallas/collective_kernel.py:596"),
     "K17 collective DIA whole solve (cg, cg1)": ("hpccg_tpu_torch/csrc/collective_dia.cu",
                                                  "hpccg_tpu/ops/pallas/collective_kernel.py:906"),
+    "K1/bf16 stencil spmv": ("hpccg_tpu_torch/csrc/stencil.cu", "hpccg_tpu/ops/pallas/stencil_v2.py:133"),
+    "K2/bf16 stencil spmv + p.Ap": ("hpccg_tpu_torch/csrc/stencil.cu", "hpccg_tpu/ops/pallas/stencil_v2.py:280"),
+    "K3/bf16 p-update + spmv + p.Ap": ("hpccg_tpu_torch/csrc/stencil.cu", "hpccg_tpu/ops/pallas/fused_cg.py:68"),
+    "K4/bf16 x/r update + r.r": ("hpccg_tpu_torch/csrc/fused_cg.cu", "hpccg_tpu/ops/pallas/fused_cg.py:114"),
+    "copy-probe y = x + 1 (HBM copy rate)": ("hpccg_tpu_torch/csrc/stream.cu", "exp/stream_probe.py:25"),
+    "write-probe o = tile(seed) * 1.00001 (HBM write rate)": ("hpccg_tpu_torch/csrc/stream.cu",
+                                                             "exp/rw_probe.py:20"),
 }
 SLICE1 = list(KERNELS)[:5]  # the kernels of slice 1's main path
 SLICE2 = list(KERNELS)[5:8]
 SLICE3 = list(KERNELS)[8:14]
 SLICE4 = list(KERNELS)[14:16]
-SLICE5 = list(KERNELS)[16:]
+SLICE5 = list(KERNELS)[16:17]
+SLICE6 = list(KERNELS)[17:]
 K5, K6, K7 = SLICE2
 K9, K10, K11, K12, K13, K14 = SLICE3
 K15, K16 = SLICE4
 (K17,) = SLICE5
+B1, B2, B3, B4, COPY, WRITE = SLICE6
 WIDE = [K13, K14]  # counted on the wide-scatter solve
 # tolerances, kernel vs plain on the same inputs: the sums run in another
 # order (the xy-sums associate like the plain version, but the compiler may
@@ -564,7 +592,8 @@ def _event_ms(fn, reps=20) -> float:
 # cores (float32 and float64: NVIDIA's H100 SXM data sheet), at the full
 # 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {4: 67e12, 8: 34e12}
+# bf16 storage (element size 2) computes in float32: its peak is float32's
+PEAK_OPS_PER_S = {2: 67e12, 4: 67e12, 8: 34e12}
 
 
 def _model(stat, nbytes, ops, elsize) -> None:
@@ -622,6 +651,8 @@ def _counters():
     from hpccg_tpu_torch.ops.cuda import stencil as st
     from hpccg_tpu_torch.ops.cuda import streamkernel as sk
 
+    from hpccg_tpu_torch.ops.cuda import stream
+
     wrappers = [st.spmv_stencil, st.spmv_stencil_pap, st.update_p_apply, fc.update_x_r, fc.cg_finalize,
                 mk.cg_solve_mega, sk.cg_solve_stream, st.spmv_stencil_pap_dd]
     counters = [(w, "launches") for w in wrappers]
@@ -630,6 +661,9 @@ def _counters():
                  (cell.spmv_ell, "launches_f32"), (cell.spmv_ell, "launches_f32"),
                  (col.cg_collective, "launches"), (col.cg_collective_pipelined, "launches"),
                  (col.cg_collective_dia, "launches")]
+    counters += [(w, "launches_bf16") for w in (st.spmv_stencil, st.spmv_stencil_pap, st.update_p_apply,
+                                                fc.update_x_r)]
+    counters += [(stream.copy_plus_one, "launches"), (stream.write_tiled, "launches")]
     return dict(zip(KERNELS, counters))
 
 
@@ -1106,8 +1140,9 @@ def phase_main_path() -> dict:
     wide = _drive(_main_path_wide_scatter, WIDE)
     fourth = _drive(_main_path_slice4, SLICE4)
     fifth = _drive(_main_path_slice5, SLICE5)
+    sixth = _drive(_main_path_slice6, SLICE6)
     runs = [(SLICE1, first), (SLICE2, second), ([K9, K10, K11, K12], third), (WIDE, wide), (SLICE4, fourth),
-            (SLICE5, fifth)]
+            (SLICE5, fifth), (SLICE6, sixth)]
     return {n: counts[n] for names, counts in runs for n in names}
 
 
@@ -1253,7 +1288,7 @@ def phase_timing(card: str) -> None:
 
     cells = [(MAIN_SHAPE, torch.float32, ("stencil", "pallas", "pallas_fused", "megakernel", "streamkernel")),
              ((256, 256, 256), torch.float32, ("stencil", "pallas", "pallas_fused", "megakernel", "streamkernel")),
-             ((256, 256, 256), torch.bfloat16, ("megakernel", "streamkernel"))]
+             ((256, 256, 256), torch.bfloat16, ("megakernel", "streamkernel", "pallas", "pallas_fused"))]
     for dims, dtype, backends in cells:
         prob = generate_problem(ProblemConfig(*dims, stencil=27, dtype=dtype), device="cuda")
         n = prob.total_nrow
@@ -1997,6 +2032,327 @@ def phase_timing_file_mesh(card: str, stats: dict) -> None:
                 "collective_dia_kernel")
 
 
+# ------------------------------------------------------------ slice 6: bench, bf16 K1-K4, the probes
+
+BF16_VEC_ULPS = 4  # kernel vs plain, in bf16 ulps of max|y|
+BF16_DOT_RTOL = 1e-3  # the f32 partials, relative
+BF16_SHAPE = (256, 256, 256)  # the bf16 main path's size and the shape of its timings
+BENCH_KEYS = ("device", "power_limit_w", "backend", "problem", "niters", "cg_iter_us", "spmv_us",
+              "spmv_gbps_2pass", "spmv_gnnz_per_s", "cg_iters_per_s", "solve_e2e_s", "mflops_model",
+              "final_normr", "hbm_copy_gbps", "hbm_write_gbps", "timing", "other_paths", "vs_baseline_def")
+PROBE_ELEMENTS = 1 << 28  # 1 GiB of float32 per array, 20x the L2 (utils/bandwidth.py)
+
+
+def _bf16_ulps(got, want) -> float:
+    """max|got - want| in bf16 ulps of max|want| (2^-7 of its power of 2)."""
+    scale = float(want.float().abs().max()) or 1.0
+    return float((got.float() - want.float()).abs().max()) / 2.0 ** (math.floor(math.log2(scale)) - 7)
+
+
+def _bf16_vec(got, want, what) -> float:
+    ulps = _bf16_ulps(got, want)
+    if not ulps <= BF16_VEC_ULPS:
+        raise AssertionError(f"{what}: kernel {ulps:.2f} bf16 ulps of max|y| from plain (limit {BF16_VEC_ULPS})")
+    return float((got.float() - want.float()).abs().max())
+
+
+def _bf16_dot(a, b, what) -> None:
+    a, b = float(a), float(b)
+    if not abs(a - b) <= BF16_DOT_RTOL * abs(b):
+        raise AssertionError(f"{what}: kernel {a!r} vs plain {b!r} (rtol {BF16_DOT_RTOL})")
+
+
+def _same(a, b, what) -> None:
+    if not torch.equal(_bits(a), _bits(b)):
+        raise AssertionError(f"{what}: not bit-identical")
+
+
+def _bf16_cases(op, gen, tag):
+    """K1-K4's bf16 instances against their plain versions on random
+    inputs, with and without external halo planes (a z-shard): vectors
+    within BF16_VEC_ULPS, partials within BF16_DOT_RTOL, p', x', r' bit for
+    bit (both round once per operation), two launches bit-identical.
+    Returns {kernel: max|kernel - plain|} and the inputs."""
+    from hpccg_tpu_torch.ops.cuda import fused_cg as fc
+    from hpccg_tpu_torch.ops.cuda import stencil as st
+
+    nx, ny, nz = op.nx, op.ny, op.nz
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    u, r, p, ap = (rnd(nz, ny, nx) for _ in range(4))
+    halo2, halo4 = rnd(2, ny, nx), rnd(4, ny, nx)
+    beta = torch.tensor([0.37], device="cuda")
+    errs = dict.fromkeys((B1, B2, B3, B4), 0.0)
+    for halo in (None, halo2):
+        what = f"K1/bf16 {tag} halo={halo is not None}"
+        y = st.spmv_stencil(op, u, halo)
+        errs[B1] = max(errs[B1], _bf16_vec(y, st.spmv_stencil_plain(op, u, halo), what))
+        _same(y, st.spmv_stencil(op, u, halo), f"{what} repeat")
+        y, parts = st.spmv_stencil_pap(op, u, halo)
+        y0, parts0 = st.spmv_stencil_pap_plain(op, u, halo)
+        errs[B2] = max(errs[B2], _bf16_vec(y, y0, f"K2/bf16 y {tag}"))
+        _bf16_dot(parts.sum(), parts0.sum(), f"K2/bf16 p.Ap {tag}")
+        _same(parts, st.spmv_stencil_pap(op, u, halo)[1], f"K2/bf16 {tag} repeat")
+    for halo in (None, halo4):
+        what = f"K3/bf16 {tag} halo={halo is not None}"
+        pp, app, parts = st.update_p_apply(op, r, p, beta, halo)
+        pp0, app0, parts0 = st.update_p_apply_plain(op, r, p, beta, halo)
+        _same(pp, pp0, f"{what} p' against plain")
+        errs[B3] = max(errs[B3], _bf16_vec(app, app0, f"{what} Ap'"))
+        _bf16_dot(parts.sum(), parts0.sum(), f"{what} p'.Ap'")
+        _same(app, st.update_p_apply(op, r, p, beta, halo)[1], f"{what} repeat")
+    alpha = torch.tensor([0.21], device="cuda")
+    x1, r1, x2, r2 = u.clone(), r.clone(), u.clone(), r.clone()
+    _, _, parts = fc.update_x_r(x1, r1, p, ap, alpha)
+    _, _, parts0 = fc.update_x_r_plain(x2, r2, p, ap, alpha)
+    _same(x1, x2, f"K4/bf16 x' {tag}")
+    _same(r1, r2, f"K4/bf16 r' {tag}")
+    _bf16_dot(parts.sum(), parts0.sum(), f"K4/bf16 r'.r' {tag}")
+    return errs, (u, r, p, ap, beta, alpha)
+
+
+def phase_bf16_kernels() -> dict:
+    """K1-K4's bf16 instances against their plain versions at SHAPES, 27-
+    and 7-point, and at BF16_SHAPE; then their device time per launch at
+    BF16_SHAPE 27-point (plain, kernel, kernel, plain) and conv3d in bf16
+    beside K1. Returns the bf16 rows' max_abs_err (at BF16_SHAPE), ms,
+    plain_ms, library_ms and work model."""
+    from hpccg_tpu_torch.config import Stencil
+    from hpccg_tpu_torch.operators import StencilOperator
+    from hpccg_tpu_torch.ops.cuda import fused_cg as fc
+    from hpccg_tpu_torch.ops.cuda import stencil as st
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    for nx, ny, nz in SHAPES:
+        for stencil in (Stencil.S27, Stencil.S7):
+            tag = f"{nx}x{ny}x{nz} {stencil.value}pt bf16"
+            errs, _ = _bf16_cases(StencilOperator(nx, ny, nz, stencil, torch.bfloat16), gen, tag)
+            say(f"[bf16] {tag}: ok, p' x' r' bit for bit, repeats bit-identical; "
+                + " ".join(f"{n.split()[0]}={e:.2e}" for n, e in errs.items()))
+    op = StencilOperator(*BF16_SHAPE, Stencil.S27, torch.bfloat16)
+    errs, (u, r, p, ap, beta, alpha) = _bf16_cases(op, gen, "256^3 27pt bf16")
+    stats = {name: {"max_abs_err": errs[name]} for name in (B1, B2, B3, B4)}
+    out, out2 = torch.empty_like(u), torch.empty_like(u)
+    parts3 = torch.empty((st.num_partials(op, u.device),), device="cuda")
+    parts4 = torch.empty((fc.num_update_partials(u.numel(), u.device),), device="cuda")
+    zero = torch.zeros((1,), device="cuda")  # keeps x, r unchanged
+    x, rr = u.clone(), r.clone()
+    pairs = {
+        B1: (lambda: st.spmv_stencil(op, u, out=out), lambda: st.spmv_stencil_plain(op, u, out=out)),
+        B2: (lambda: st.spmv_stencil_pap(op, u, out=out, partials=parts3),
+             lambda: st.spmv_stencil_pap_plain(op, u, out=out)),
+        B3: (lambda: st.update_p_apply(op, r, p, beta, out_p=out, out_ap=out2, partials=parts3),
+             lambda: st.update_p_apply_plain(op, r, p, beta, out_p=out, out_ap=out2)),
+        B4: (lambda: fc.update_x_r(x, rr, p, ap, zero, partials=parts4),
+             lambda: fc.update_x_r_plain(x, rr, p, ap, zero)),
+    }
+    for name, (kern, plain) in pairs.items():
+        _time_pair(stats[name], kern, plain)
+    n, nnz = op.local_nrow, op.nnz
+    # bytes at 2 per element; the arithmetic is f32 (PEAK_OPS_PER_S[2])
+    _model(stats[B1], 2 * n * 2, 2 * nnz, 2)
+    _model(stats[B2], 2 * n * 2, 2 * nnz + 2 * n, 2)
+    _model(stats[B3], 4 * n * 2, 2 * nnz + 4 * n, 2)
+    _model(stats[B4], 6 * n * 2, 6 * n, 2)
+    weight, u5 = _conv_weight(op), u.view(1, 1, *u.shape)
+    stats[B1]["library_ms"] = _event_ms(lambda: torch.nn.functional.conv3d(u5, weight, padding=1))
+    for name in pairs:
+        stat = stats[name]
+        bound_ms, _ = _bound(stat)
+        say(f"[bf16] {name} at 256^3: {stat['ms'] * 1e3:.2f} us vs plain {stat['plain_ms'] * 1e3:.2f}, bound "
+            f"{bound_ms * 1e3:.2f} ({stat['bytes'] / 1e6:.1f} MB; {_gbs(stat['bytes'], stat['ms']):.0f} GB/s)"
+            + (f", conv3d bf16 {stat['library_ms'] * 1e3:.2f}" if "library_ms" in stat else ""))
+    return stats
+
+
+def phase_probes(card: str) -> dict:
+    """The copy and write probe kernels against their plain versions (x + 1;
+    seed.repeat(...) * 1.00001) bit for bit, at 1 GiB per array and on
+    lengths with a tail past the last whole float4, and against the
+    library calls that compute the same (torch.add(x, 1, out=y);
+    torch.mul(seed.expand(...), 1.00001, out=o)); then device ms per launch
+    of each (plain, kernel, kernel, plain; CUDA events, each launch
+    streams >= 1 GiB) with the rates they give."""
+    from hpccg_tpu_torch.ops.cuda import stream
+
+    n = PROBE_ELEMENTS
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    for m in (1, 7, 4096 * 33 + 3):
+        x = torch.randn((m,), generator=gen, device="cuda")
+        _same(stream.copy_plus_one(x), stream.copy_plus_one_plain(x), f"copy probe n={m}")
+    seed = torch.randn((512, 128), generator=gen, device="cuda")
+    for m in (4, 65536 * 3 + 5, 1000003):
+        _same(stream.write_tiled(seed, m), stream.write_tiled_plain(seed, m), f"write probe n={m}")
+    x = torch.randn((n,), generator=gen, device="cuda")
+    y, lib = torch.empty_like(x), torch.empty_like(x)
+    stream.copy_plus_one(x, out=y)
+    _same(y, stream.copy_plus_one_plain(x), "copy probe 1 GiB against plain")
+    _same(y, torch.add(x, 1, out=lib), "copy probe 1 GiB against torch.add")
+    stats = {COPY: {"max_abs_err": float((y - stream.copy_plus_one_plain(x)).abs().max())}}
+    o = stream.write_tiled(seed, n)
+    tiles = lib.view(n // seed.numel(), seed.numel())
+    torch.mul(seed.reshape(1, -1).expand_as(tiles), 1.00001, out=tiles)
+    _same(o, stream.write_tiled_plain(seed, n), "write probe 1 GiB against plain")
+    _same(o, lib, "write probe 1 GiB against torch.mul")
+    stats[WRITE] = {"max_abs_err": float((o - stream.write_tiled_plain(seed, n)).abs().max())}
+    del o
+    runs = {
+        COPY: (lambda: stream.copy_plus_one(x, out=y), lambda: stream.copy_plus_one_plain(x),
+               lambda: torch.add(x, 1, out=lib)),
+        WRITE: (lambda: stream.write_tiled(seed, n, out=y), lambda: stream.write_tiled_plain(seed, n),
+                lambda: torch.mul(seed.reshape(1, -1).expand_as(tiles), 1.00001, out=tiles)),
+    }
+    for name, (kern, plain, library) in runs.items():
+        stat = stats[name]
+        t_p1, t_k1, t_k2, t_p2 = (_event_ms(f) for f in (plain, kern, kern, plain))
+        stat.update(ms=(t_k1 + t_k2) / 2, plain_ms=(t_p1 + t_p2) / 2, library_ms=_event_ms(library))
+        moved = 2 * 4 * n if name == COPY else 4 * n + 4 * seed.numel()
+        _model(stat, moved, n, 4)
+        say(f"[probes] {name}: bit for bit against plain and library; {stat['ms'] * 1e3:.1f} us per launch "
+            f"({_gbs(moved, stat['ms']):.0f} GB/s) vs plain {stat['plain_ms'] * 1e3:.1f}, library "
+            f"{stat['library_ms'] * 1e3:.1f} ({_gbs(moved, stat['library_ms']):.0f} GB/s), bound "
+            f"{_bound(stat)[0] * 1e3:.1f} [{card}]")
+    return stats
+
+
+def _bench_line(text: str, what: str, max_iter: int) -> dict:
+    """The bench's one JSON line, checked: the JAX bench's keys and the
+    port's, niters == max_iter - 1, a finite value > 0."""
+    lines = [ln for ln in text.splitlines() if ln.strip()]
+    if len(lines) != 1:
+        raise AssertionError(f"bench {what}: expected one line, got {len(lines)}: {text[-2000:]}")
+    line = json.loads(lines[0])
+    missing = [k for k in ("metric", "value", "unit", "vs_baseline") if k not in line]
+    missing += [k for k in BENCH_KEYS if k not in line.get("extras", {})]
+    if missing:
+        raise AssertionError(f"bench {what}: keys missing {missing}")
+    ex = line["extras"]
+    if ex["niters"] != max_iter - 1 or not (math.isfinite(line["value"]) and line["value"] > 0):
+        raise AssertionError(f"bench {what}: niters {ex['niters']}, value {line['value']}")
+    if not (math.isfinite(line["vs_baseline"]) and line["vs_baseline"] > 0 and ex["hbm_copy_gbps"] > 0):
+        raise AssertionError(f"bench {what}: vs_baseline {line['vs_baseline']}, copy {ex['hbm_copy_gbps']}")
+    say(f"[bench] {what}: {lines[0]}")
+    return line
+
+
+@contextlib.contextmanager
+def _plain_kernels():
+    """The solver's K1-K4 wrappers swapped for their plain versions, which
+    run on the card's tensors too: make_cg then runs the same recurrence,
+    with the same rounding points, with no kernel of K1-K4. The plain
+    versions' partials land in the first slot of the kernels' partial
+    arrays (the rest zero), so the finalize step sums what it would."""
+    from unittest import mock
+
+    from hpccg_tpu_torch.ops.cuda import fused_cg as fc
+    from hpccg_tpu_torch.ops.cuda import stencil as st
+
+    def into(partials, part):
+        if partials is None:
+            return part
+        partials.zero_()
+        partials[:1].copy_(part)
+        return partials
+
+    def k2(op, u, halo=None, *, out=None, partials=None, active=None):
+        y, part = st.spmv_stencil_pap_plain(op, u, halo, out=out, active=active)
+        return y, into(partials, part)
+
+    def k3(op, r, p, beta, halo=None, *, out_p=None, out_ap=None, partials=None, active=None):
+        pp, ap, part = st.update_p_apply_plain(op, r, p, beta, halo, out_p=out_p, out_ap=out_ap, active=active)
+        return pp, ap, into(partials, part)
+
+    def k4(x, r, p, ap, alpha, *, partials=None, active=None):
+        x, r, part = fc.update_x_r_plain(x, r, p, ap, alpha, active=active)
+        return x, r, into(partials, part)
+
+    with mock.patch.multiple("hpccg_tpu_torch.solver", spmv_stencil=st.spmv_stencil_plain, spmv_stencil_pap=k2,
+                             update_p_apply=k3, update_x_r=k4):
+        yield
+
+
+def _main_path_slice6() -> None:
+    """The bf16 main path at BF16_SHAPE (max_iter 50): make_cg on pallas (K1,
+    K2 bf16) and pallas_fused (K1, K3, K4 bf16: one K3 and one K4 launch per
+    iteration), each held against the same recurrence with the plain versions
+    in place of the kernels (WS_TRACE bf16, as K5/K6 against theirs), and,
+    as the bf16 whole solves are, against the float32 stencil trace and the
+    bf16 streamkernel trace (BF16_RTOL above BF16_FLOOR: two bf16
+    recurrences that round at other places part by percents; K6 never
+    stores Ap'); make_distributed_cg in bf16 on auto (= pallas: K2 with bf16
+    halo planes) on 4 ranks of the card at 64x64x64 per rank, against the
+    single-device pallas solve of the same grid; then the benchmark entry
+    point in process, ``--preset strong256 --dtype bfloat16 --backend
+    pallas_fused``, which runs K1/K3/K4 bf16 and both probe kernels."""
+    from hpccg_tpu_torch import ProblemConfig, generate_problem, make_cg
+    from hpccg_tpu_torch import bench
+    from hpccg_tpu_torch.parallel import generate_problem_sharded, make_distributed_cg
+
+    runs = _solve_all(BF16_SHAPE, 50, ["streamkernel", "pallas", "pallas_fused"], torch.bfloat16)
+    f32 = _solve_all(BF16_SHAPE, 50, ["stencil"])["stencil"][0]
+    prob = generate_problem(ProblemConfig(*BF16_SHAPE, stencil=27, dtype=torch.bfloat16), "cuda")
+    rtol, floor = WS_TRACE[torch.bfloat16]
+    for backend in ("pallas", "pallas_fused"):
+        tr, delta, res = runs[backend]
+        if res.x.dtype != torch.bfloat16 or res.trace.dtype != torch.float32:
+            raise AssertionError(f"bf16 {backend}: x {res.x.dtype}, trace {res.trace.dtype}")
+        with _plain_kernels():
+            want = make_cg(prob.A, max_iter=50, tolerance=0.0, backend=backend)(prob.b, prob.x0)
+        worst, tail = _trace_check(tr, want.trace.double().cpu(), f"256^3 bf16 {backend} vs plain", rtol, floor)
+        cross = [_head_rel(tr, ref, BF16_RTOL, BF16_FLOOR, f"256^3 bf16 {backend} vs {what}")
+                 for what, ref in (("float32 stencil", f32), ("bf16 streamkernel", runs["streamkernel"][0]))]
+        xerr, share = float((res.x.float() - want.x.float()).abs().max()), float((res.x != want.x).double().mean())
+        say(f"[main] 256^3 bf16 {backend}: trace within {worst:.2e} of its plain version's above {floor} of "
+            f"trace[0] ({tail:.2e} below), x within {xerr:.2e} of it in {share:.2e} of the elements; within "
+            f"{cross[0]:.2e} of the float32 stencil trace and {cross[1]:.2e} of the bf16 streamkernel trace "
+            f"above {BF16_FLOOR}; max|x - 1| {float((res.x.float() - 1).abs().max()):.3e}")
+    fused = runs["pallas_fused"][1]
+    if not (fused[B3] == fused[B4] == 49 and fused[B1] >= 1):
+        raise AssertionError(f"256^3 bf16 pallas_fused: expected K3/K4 bf16 once per iteration: {fused}")
+    if runs["pallas"][1][B2] < 49:
+        raise AssertionError(f"256^3 bf16 pallas: K2 bf16 launched {runs['pallas'][1][B2]} times")
+    cfg = ProblemConfig(64, 64, 64, dtype=torch.bfloat16)
+    mesh = _one_card(4)
+    prob = generate_problem_sharded(cfg, mesh)
+    before = _counts()
+    res = make_distributed_cg(cfg, mesh, max_iter=50, tolerance=0.0)(prob.b, prob.x0)
+    torch.cuda.synchronize()
+    delta = {n: c - before[n] for n, c in _counts().items()}
+    gprob = generate_problem(ProblemConfig(64, 64, 256, dtype=torch.bfloat16), "cuda")
+    single = make_cg(gprob.A, max_iter=50, tolerance=0.0, backend="pallas")(gprob.b, gprob.x0)
+    if int(res.niters) != 49 or delta[B2] < 4 * 49 or not bool(torch.isfinite(torch.cat(res.x).float()).all()):
+        raise AssertionError(f"4 x 64^3 bf16 auto: niters {int(res.niters)}, launches {delta}")
+    # the same stencil sums and p.Ap partials in the same order; r.r is
+    # summed per rank, in another order
+    worst, tail = _trace_check(res.trace.double().cpu(), single.trace.double().cpu(),
+                               "4 x 64^3 bf16 auto vs single-device pallas", rtol, floor)
+    say(f"[main] 4 x 64^3 bf16 distributed auto (pallas, K2 bf16 with halo planes): niters 49, trace within "
+        f"{worst:.2e} of the single-device pallas solve's, {tail:.2e} below; launches {_launch_note(delta)}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench.main(["--preset", "strong256", "--dtype", "bfloat16", "--backend", "pallas_fused"])
+    if rc != 0:
+        raise AssertionError(f"bench strong256 bf16 pallas_fused returned {rc}")
+    _bench_line(buf.getvalue(), "--preset strong256 --dtype bfloat16 --backend pallas_fused (in process)", 150)
+
+
+def phase_bench() -> None:
+    """``python -m hpccg_tpu_torch.bench --preset headline100`` and
+    ``--preset strong256`` as subprocesses (the bf16 run is the main path's,
+    in process): each prints one JSON line with the keys, niters 149 and a
+    finite value."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    for preset in ("headline100", "strong256"):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "hpccg_tpu_torch.bench", "--preset", preset],
+                              capture_output=True, text=True, cwd=root, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"bench --preset {preset} returned {proc.returncode}: {proc.stderr[-3000:]}")
+        _bench_line(proc.stdout, f"--preset {preset} ({time.perf_counter() - t0:.1f} s)", 150)
+
+
 def _phase(name, fn, *args):
     """fn(*args), with its seconds printed."""
     t0 = time.perf_counter()
@@ -2014,6 +2370,8 @@ def main() -> int:
     stats.update(_phase("sparse kernels vs plain", phase_sparse_kernels, card))
     stats.update(_phase("collective kernels vs plain", phase_collective_kernels))
     stats.update(_phase("collective DIA kernel vs plain", phase_collective_dia_kernels))
+    stats.update(_phase("bf16 K1-K4 vs plain", phase_bf16_kernels))
+    stats.update(_phase("bandwidth probes vs plain", phase_probes, card))
     launches = _phase("main paths", phase_main_path)
     _phase("golden", phase_golden)
     _phase("golden, collective", phase_golden_collective)
@@ -2022,6 +2380,7 @@ def main() -> int:
     _phase("cli, methods", phase_cli_methods)
     _phase("cli, file mode", phase_cli_files)
     _phase("cli, distributed file mode", phase_cli_file_mesh)
+    _phase("bench", phase_bench)
     _phase("timing", phase_timing, card)
     _phase("timing, explicit matrices", phase_timing_explicit, card, stats)
     _phase("timing, collective", phase_timing_collective, card, stats)

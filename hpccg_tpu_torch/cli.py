@@ -38,8 +38,8 @@ so across cards ``collective`` falls back to dia-halo (the API drives K17
 on a one-card mesh: ``parallel.make_collective_dia_cg``).
 
 Total is timed with CUDA events around a warm solve (the host clock on the
-CPU). SPARSEMV is slope-timed on K1 (empty for bfloat16: K1 has no bf16
-instance yet), in file mode on the matrix's kernel (K9/K10 for DIA,
+CPU). SPARSEMV is slope-timed on K1 (in bfloat16 on its bf16 instance), in
+file mode on the matrix's kernel (K9/K10 for DIA,
 K11/K12 for ELL; the plain matvec on backend ``stencil``); DDOT and WAXPBY on the plain torch ops, or, for
 ``pallas_fused``, WAXPBY on K4 (the fused x/r update with r.r) and DDOT
 left empty because it is fused into K3/K4. For the whole-solve backends
@@ -157,9 +157,9 @@ def _explicit_backend(A, backend: str) -> str:
 def _kernel_bench(prob, backend_used, device):
     """Seconds per call of (ddot, waxpby, spmv), slope-timed; NaN where a
     row is fused into another kernel or has no kernel for the dtype."""
+    from hpccg_tpu_torch.config import scalar_dtype
     from hpccg_tpu_torch.ops.cuda.fused_cg import update_x_r
     from hpccg_tpu_torch.ops.cuda.stencil import spmv_stencil
-    from hpccg_tpu_torch.ops.vector import ddot, waxpby
     from hpccg_tpu_torch.utils.timing import time_loop_slope
 
     op = prob.A
@@ -176,13 +176,12 @@ def _kernel_bench(prob, backend_used, device):
         for i in range(k):
             apply(bufs[i % 2], bufs[(i + 1) % 2])
 
-    # K1 has no bf16 instance yet
-    t_spmv = float("nan") if prob.b.dtype == torch.bfloat16 else time_loop_slope(spmv_loop, device=device)
+    t_spmv = time_loop_slope(spmv_loop, device=device)
     if backend_used in WHOLE_SOLVE_BACKENDS:
         return float("nan"), float("nan"), t_spmv
     if backend_used == "pallas_fused":
         x, r, p, ap = (prob.b.clone() for _ in range(4))
-        alpha = torch.zeros((1,), dtype=prob.b.dtype, device=device)
+        alpha = torch.zeros((1,), dtype=scalar_dtype(prob.b.dtype), device=device)
         part = None
 
         def k4_loop(k):
@@ -355,7 +354,7 @@ def _kernel_bench_distributed(prob, backend_used, device, mesh, cfg):
             else:
                 kernel_matvec(op, halo, bufs[i % 2], bufs[(i + 1) % 2])
 
-    t_spmv = float("nan") if cfg.dtype == torch.bfloat16 else time_loop_slope(spmv_loop, device=device)
+    t_spmv = time_loop_slope(spmv_loop, device=device)
     if backend_used == "distributed:collective":
         return float("nan"), float("nan"), t_spmv
     return (*_vector_bench(mesh.unshard(prob.b), mesh.unshard(prob.x0), device), t_spmv)
@@ -548,8 +547,6 @@ def main(argv=None) -> int:
         fused_note = "; WAXPBY times K4 (x/r update fused with r.r) once per iteration and DDOT is fused into K3/K4"
     elif backend_used in (*WHOLE_SOLVE_BACKENDS, "distributed:collective", "distributed:dia-collective"):
         fused_note = "; DDOT and WAXPBY are fused into the whole-solve kernel (one launch per solve)"
-    if dtype == torch.bfloat16:
-        fused_note += "; SPARSEMV is empty: K1 has no bfloat16 instance yet"
     if mesh is not None and file_mode:
         spmv_note = f"{FILE_SPMV_NOTES[backend_used.split(':', 1)[1]]} on {ndev} ranks"
     elif mesh is not None:

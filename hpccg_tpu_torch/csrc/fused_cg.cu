@@ -21,6 +21,16 @@
 // grid so the partials stay few, and the partial sums deterministic (fixed
 // tree in each block, fixed order in finalize; no float atomics).
 //
+// bf16 storage (T = __nv_bfloat16, S = float, storage.cuh): x += alpha p
+// and r -= alpha Ap run in f32 and round to bf16 as they are stored; alpha
+// and the partials are f32, and r.r sums the stored r in f32. (The JAX
+// kernel keeps the sum in the refs' dtype, fused_cg.py:120-125; the port's
+// per-iteration backends keep the scalars in f32 for bf16 vectors, as its
+// whole-solve kernel does.) Both updates are rounded one operation at a
+// time, as the plain torch version computes them, so x' and r' match it bit
+// for bit. The finalize step for bf16 vectors is the f32 instance.
+// Simple first: one element a thread per step, no bf16x2 loads yet.
+//
 // The scalar state lives in two small device arrays (cg_scalars.cuh):
 //   sc[T]:   rtrans (current), rtrans (previous), alpha, beta, normr, tol
 //   ic[int]: k, active, max_iter
@@ -31,6 +41,7 @@
 
 #include "cg_scalars.cuh"
 #include "reduce.cuh"
+#include "storage.cuh"
 
 namespace {
 
@@ -40,23 +51,23 @@ constexpr long long K4_MAX_BLOCKS = 1056;  // 8 blocks on each of 132 SMs
 using namespace hpccg;
 enum { STEP_INIT = 0, STEP_PAP = 1, STEP_RR = 2 };
 
-template <typename T>
+template <typename T, typename S>
 __global__ void __launch_bounds__(NT)
     update_x_r_kernel(T* __restrict__ x, T* __restrict__ r, const T* __restrict__ p,
-                      const T* __restrict__ ap, const T* alpha_ptr, T* __restrict__ partials,
+                      const T* __restrict__ ap, const S* alpha_ptr, S* __restrict__ partials,
                       const int* active, int64_t n) {
   if (active != nullptr && *active == 0) return;
-  __shared__ T red[NT];
-  const T a = *alpha_ptr;
-  T acc = T(0);
+  __shared__ S red[NT];
+  const S a = *alpha_ptr;
+  S acc = S(0);
   const int64_t stride = (int64_t)gridDim.x * NT;
   for (int64_t i = (int64_t)blockIdx.x * NT + threadIdx.x; i < n; i += stride) {
-    x[i] = x[i] + a * p[i];
-    const T rn = r[i] - a * ap[i];
-    r[i] = rn;
+    x[i] = from_s<T>(add_rn(to_s(x[i]), mul_rn(a, to_s(p[i]))));
+    const S rn = to_s(from_s<T>(add_rn(to_s(r[i]), -mul_rn(a, to_s(ap[i])))));
+    r[i] = from_s<T>(rn);
     acc += rn * rn;
   }
-  const T total = hpccg::block_sum<T, NT>(acc, red, threadIdx.x);
+  const S total = hpccg::block_sum<S, NT>(acc, red, threadIdx.x);
   if (threadIdx.x == 0) partials[blockIdx.x] = total;
 }
 
@@ -110,12 +121,12 @@ int update_blocks(long long n) {
   return (int)(b < K4_MAX_BLOCKS ? (b < 1 ? 1 : b) : K4_MAX_BLOCKS);
 }
 
-template <typename T>
-int launch_update(T* x, T* r, const T* p, const T* ap, const T* alpha, T* partials,
+template <typename T, typename S>
+int launch_update(T* x, T* r, const T* p, const T* ap, const S* alpha, S* partials,
                   const int* active, long long n, void* stream) {
   if (n < 1) return (int)cudaErrorInvalidValue;
-  update_x_r_kernel<T><<<update_blocks(n), NT, 0, (cudaStream_t)stream>>>(x, r, p, ap, alpha,
-                                                                          partials, active, n);
+  update_x_r_kernel<T, S><<<update_blocks(n), NT, 0, (cudaStream_t)stream>>>(
+      x, r, p, ap, alpha, partials, active, n);
   return (int)cudaGetLastError();
 }
 
@@ -136,13 +147,20 @@ int hpccg_update_num_blocks(long long n) { return update_blocks(n); }
 
 int hpccg_update_x_r_f32(float* x, float* r, const float* p, const float* ap, const float* alpha,
                          float* partials, const int* active, long long n, void* stream) {
-  return launch_update<float>(x, r, p, ap, alpha, partials, active, n, stream);
+  return launch_update<float, float>(x, r, p, ap, alpha, partials, active, n, stream);
 }
 
 int hpccg_update_x_r_f64(double* x, double* r, const double* p, const double* ap,
                          const double* alpha, double* partials, const int* active, long long n,
                          void* stream) {
-  return launch_update<double>(x, r, p, ap, alpha, partials, active, n, stream);
+  return launch_update<double, double>(x, r, p, ap, alpha, partials, active, n, stream);
+}
+
+// bf16 vectors; alpha and the partials float32.
+int hpccg_update_x_r_bf16(__nv_bfloat16* x, __nv_bfloat16* r, const __nv_bfloat16* p,
+                          const __nv_bfloat16* ap, const float* alpha, float* partials,
+                          const int* active, long long n, void* stream) {
+  return launch_update<__nv_bfloat16, float>(x, r, p, ap, alpha, partials, active, n, stream);
 }
 
 int hpccg_finalize_f32(const float* partials, int nparts, float* sc, int* ic, float* trace,

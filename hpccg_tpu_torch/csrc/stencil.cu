@@ -32,26 +32,43 @@
 //   - Offsets into the vectors are 64-bit: nz*ny*nx passes 2^31 at 1291^3.
 //   - `active` (device int, may be null): when it is 0 the kernel returns
 //     without writing, so launches after the CG exit are no-ops.
-// Simple first: no TMA, clusters or warp specialisation yet.
+//   - bf16 storage (T = __nv_bfloat16, S = float, storage.cuh), the
+//     instance that stencil_v2.py:137-142 and fused_cg.py run on bf16 refs:
+//     loads upcast, the 27-point sum, p' = r + beta p and the partials run in
+//     f32, stores round to bf16; beta and the partials are f32. p' is rounded
+//     to T as it is formed, so Ap' is A of the p' that is stored, and the
+//     partial sums p' . Ap' over the stored values: K4's r -= alpha Ap' reads
+//     that stored Ap', so alpha pairs the p.Ap that the update sees. The
+//     halo planes are T as well (the distributed path).
+//   - p' = r + beta p is rounded one operation at a time (no FMA
+//     contraction), as the plain torch version computes it: p' matches it
+//     bit for bit in every dtype.
+// Simple first: no TMA, clusters, warp specialisation or bf16x2 loads yet.
 
 #include "reduce.cuh"
 #include "stencil_tile.cuh"
+#include "storage.cuh"
 
 namespace {
 
+using hpccg::add_rn;
+using hpccg::from_s;
+using hpccg::mul_rn;
 using hpccg::TILE_NT;
 using hpccg::TILE_X;
 using hpccg::TILE_Y;
+using hpccg::to_s;
 constexpr int ZC = 16;  // z-planes per block
 
-// One point of the (possibly fused) input plane zz, zero outside the grid.
-// Planes -1 and nz come from the halo pointers (zero when null).
-template <typename T, bool FUSE_P>
-__device__ __forceinline__ T load_point(const T* __restrict__ u, const T* __restrict__ v, T beta,
+// One point of the (possibly fused) input plane zz, zero outside the grid,
+// in the compute type. Planes -1 and nz come from the halo pointers (zero
+// when null). A fused point is p' = r + beta p as stored (rounded to T).
+template <typename T, typename S, bool FUSE_P>
+__device__ __forceinline__ S load_point(const T* __restrict__ u, const T* __restrict__ v, S beta,
                                         const T* hb_u, const T* ha_u, const T* hb_v,
                                         const T* ha_v, int zz, int gy, int gx, int nx, int ny,
                                         int nz) {
-  if (gx < 0 || gx >= nx || gy < 0 || gy >= ny) return T(0);
+  if (gx < 0 || gx >= nx || gy < 0 || gy >= ny) return S(0);
   const int64_t inplane = (int64_t)gy * nx + gx;
   const T* su;
   const T* sv;
@@ -69,21 +86,21 @@ __device__ __forceinline__ T load_point(const T* __restrict__ u, const T* __rest
     sv = v;
     off = (int64_t)zz * nx * ny + inplane;
   }
-  if (su == nullptr) return T(0);
-  T val = su[off];
-  if (FUSE_P) val = val + beta * sv[off];
-  return val;
+  if (su == nullptr) return S(0);
+  const S val = to_s(su[off]);
+  if (!FUSE_P) return val;
+  return to_s(from_s<T>(add_rn(val, mul_rn(beta, to_s(sv[off])))));
 }
 
-template <typename T, int STENCIL, bool FUSE_P, bool PAP>
+template <typename T, typename S, int STENCIL, bool FUSE_P, bool PAP>
 __global__ void __launch_bounds__(TILE_NT)
-    stencil_kernel(const T* __restrict__ u, const T* __restrict__ v, const T* beta_ptr,
+    stencil_kernel(const T* __restrict__ u, const T* __restrict__ v, const S* beta_ptr,
                    const T* hb_u, const T* ha_u, const T* hb_v, const T* ha_v,
-                   T* __restrict__ out_p, T* __restrict__ out_y, T* __restrict__ partials,
+                   T* __restrict__ out_p, T* __restrict__ out_y, S* __restrict__ partials,
                    const int* active, int nx, int ny, int nz) {
   if (active != nullptr && *active == 0) return;
-  __shared__ T tile[TILE_Y + 2][TILE_X + 2];
-  __shared__ T red[PAP ? TILE_NT : 1];
+  __shared__ S tile[TILE_Y + 2][TILE_X + 2];
+  __shared__ S red[PAP ? TILE_NT : 1];
 
   const int tid = threadIdx.y * TILE_X + threadIdx.x;
   const int bx0 = blockIdx.x * TILE_X, by0 = blockIdx.y * TILE_Y;
@@ -93,23 +110,25 @@ __global__ void __launch_bounds__(TILE_NT)
   const int z1 = min(z0 + ZC, nz);
   const int64_t plane = (int64_t)nx * ny;
   const int64_t inplane = (int64_t)iy * nx + ix;
-  const T beta = FUSE_P ? *beta_ptr : T(0);
+  const S beta = FUSE_P ? *beta_ptr : S(0);
 
-  T acc = T(0);
-  hpccg::march_tile<T, STENCIL>(
+  S acc = S(0);
+  hpccg::march_tile<S, STENCIL>(
       tile, bx0, by0, z0, z1,
       [&](int zz, int gy, int gx) {
-        return load_point<T, FUSE_P>(u, v, beta, hb_u, ha_u, hb_v, ha_v, zz, gy, gx, nx, ny, nz);
+        return load_point<T, S, FUSE_P>(u, v, beta, hb_u, ha_u, hb_v, ha_v, zz, gy, gx, nx, ny,
+                                        nz);
       },
-      [&](int z, T c, T y) {
+      [&](int z, S c, S y) {
         if (!inside) return;
         const int64_t o = (int64_t)z * plane + inplane;
-        out_y[o] = y;
-        if (FUSE_P) out_p[o] = c;
-        if (PAP) acc += c * y;
+        const T yt = from_s<T>(y);
+        out_y[o] = yt;
+        if (FUSE_P) out_p[o] = from_s<T>(c);
+        if (PAP) acc += c * to_s(yt);  // over the stored Ap
       });
   if (PAP) {
-    const T total = hpccg::block_sum<T, TILE_NT>(acc, red, tid);
+    const S total = hpccg::block_sum<S, TILE_NT>(acc, red, tid);
     if (tid == 0) {
       partials[((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] = total;
     }
@@ -120,28 +139,28 @@ dim3 stencil_grid(int nx, int ny, int nz) {
   return dim3((nx + TILE_X - 1) / TILE_X, (ny + TILE_Y - 1) / TILE_Y, (nz + ZC - 1) / ZC);
 }
 
-template <typename T, int STENCIL>
-void launch_variant(const T* u, const T* v, const T* beta, const T* hb_u, const T* ha_u,
-                    const T* hb_v, const T* ha_v, T* out_p, T* out_y, T* partials,
+template <typename T, typename S, int STENCIL>
+void launch_variant(const T* u, const T* v, const S* beta, const T* hb_u, const T* ha_u,
+                    const T* hb_v, const T* ha_v, T* out_p, T* out_y, S* partials,
                     const int* active, int nx, int ny, int nz, int fuse_p, int pap,
                     cudaStream_t stream) {
   const dim3 grid = stencil_grid(nx, ny, nz);
   const dim3 block(TILE_X, TILE_Y);
   if (fuse_p) {
-    stencil_kernel<T, STENCIL, true, true><<<grid, block, 0, stream>>>(
+    stencil_kernel<T, S, STENCIL, true, true><<<grid, block, 0, stream>>>(
         u, v, beta, hb_u, ha_u, hb_v, ha_v, out_p, out_y, partials, active, nx, ny, nz);
   } else if (pap) {
-    stencil_kernel<T, STENCIL, false, true><<<grid, block, 0, stream>>>(
+    stencil_kernel<T, S, STENCIL, false, true><<<grid, block, 0, stream>>>(
         u, v, beta, hb_u, ha_u, hb_v, ha_v, out_p, out_y, partials, active, nx, ny, nz);
   } else {
-    stencil_kernel<T, STENCIL, false, false><<<grid, block, 0, stream>>>(
+    stencil_kernel<T, S, STENCIL, false, false><<<grid, block, 0, stream>>>(
         u, v, beta, hb_u, ha_u, hb_v, ha_v, out_p, out_y, partials, active, nx, ny, nz);
   }
 }
 
-template <typename T>
-int launch_stencil(const T* u, const T* v, const T* beta, const T* hb_u, const T* ha_u,
-                   const T* hb_v, const T* ha_v, T* out_p, T* out_y, T* partials,
+template <typename T, typename S>
+int launch_stencil(const T* u, const T* v, const S* beta, const T* hb_u, const T* ha_u,
+                   const T* hb_v, const T* ha_v, T* out_p, T* out_y, S* partials,
                    const int* active, int nx, int ny, int nz, int stencil, int fuse_p, int pap,
                    void* stream) {
   // FUSE_P always carries the p'.Ap' partial (K3); other shapes are refused
@@ -150,11 +169,11 @@ int launch_stencil(const T* u, const T* v, const T* beta, const T* hb_u, const T
   }
   cudaStream_t s = (cudaStream_t)stream;
   if (stencil == 27) {
-    launch_variant<T, 27>(u, v, beta, hb_u, ha_u, hb_v, ha_v, out_p, out_y, partials, active,
-                          nx, ny, nz, fuse_p, pap, s);
+    launch_variant<T, S, 27>(u, v, beta, hb_u, ha_u, hb_v, ha_v, out_p, out_y, partials, active,
+                             nx, ny, nz, fuse_p, pap, s);
   } else {
-    launch_variant<T, 7>(u, v, beta, hb_u, ha_u, hb_v, ha_v, out_p, out_y, partials, active,
-                         nx, ny, nz, fuse_p, pap, s);
+    launch_variant<T, S, 7>(u, v, beta, hb_u, ha_u, hb_v, ha_v, out_p, out_y, partials, active,
+                            nx, ny, nz, fuse_p, pap, s);
   }
   return (int)cudaGetLastError();
 }
@@ -173,16 +192,28 @@ int hpccg_stencil_f32(const float* u, const float* v, const float* beta, const f
                       const float* ha_u, const float* hb_v, const float* ha_v, float* out_p,
                       float* out_y, float* partials, const int* active, int nx, int ny, int nz,
                       int stencil, int fuse_p, int pap, void* stream) {
-  return launch_stencil<float>(u, v, beta, hb_u, ha_u, hb_v, ha_v, out_p, out_y, partials,
-                               active, nx, ny, nz, stencil, fuse_p, pap, stream);
+  return launch_stencil<float, float>(u, v, beta, hb_u, ha_u, hb_v, ha_v, out_p, out_y, partials,
+                                      active, nx, ny, nz, stencil, fuse_p, pap, stream);
 }
 
 int hpccg_stencil_f64(const double* u, const double* v, const double* beta, const double* hb_u,
                       const double* ha_u, const double* hb_v, const double* ha_v, double* out_p,
                       double* out_y, double* partials, const int* active, int nx, int ny, int nz,
                       int stencil, int fuse_p, int pap, void* stream) {
-  return launch_stencil<double>(u, v, beta, hb_u, ha_u, hb_v, ha_v, out_p, out_y, partials,
-                                active, nx, ny, nz, stencil, fuse_p, pap, stream);
+  return launch_stencil<double, double>(u, v, beta, hb_u, ha_u, hb_v, ha_v, out_p, out_y,
+                                        partials, active, nx, ny, nz, stencil, fuse_p, pap, stream);
+}
+
+// bf16 vectors and halo planes; beta and the partials float32.
+int hpccg_stencil_bf16(const __nv_bfloat16* u, const __nv_bfloat16* v, const float* beta,
+                       const __nv_bfloat16* hb_u, const __nv_bfloat16* ha_u,
+                       const __nv_bfloat16* hb_v, const __nv_bfloat16* ha_v,
+                       __nv_bfloat16* out_p, __nv_bfloat16* out_y, float* partials,
+                       const int* active, int nx, int ny, int nz, int stencil, int fuse_p,
+                       int pap, void* stream) {
+  return launch_stencil<__nv_bfloat16, float>(u, v, beta, hb_u, ha_u, hb_v, ha_v, out_p, out_y,
+                                              partials, active, nx, ny, nz, stencil, fuse_p, pap,
+                                              stream);
 }
 
 }  // extern "C"

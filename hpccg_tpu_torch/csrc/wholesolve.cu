@@ -79,28 +79,18 @@
 #include "cg_scalars.cuh"
 #include "reduce.cuh"
 #include "stencil_tile.cuh"
+#include "storage.cuh"
 
 namespace {
 
 namespace coop = cooperative_groups;
+using hpccg::from_s;
 using hpccg::TILE_NT;
 using hpccg::TILE_X;
 using hpccg::TILE_Y;
+using hpccg::to_s;
 constexpr int WS_ZC = 16;         // z-planes per work item
 constexpr int WS_MIN_BLOCKS = 4;  // resident blocks per SM: caps registers at 64
-
-__device__ __forceinline__ float to_s(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_s(float v) { return v; }
-__device__ __forceinline__ double to_s(double v) { return v; }
-
-template <typename T, typename S>
-__device__ __forceinline__ T from_s(S v) {
-  return T(v);
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_s<__nv_bfloat16, float>(float v) {
-  return __float2bfloat16(v);
-}
 
 template <typename T, typename S>
 struct Params {

@@ -4,8 +4,11 @@ from __future__ import annotations
 
 import torch
 
-# dtypes of K1-K4 and the finalize step; the whole-solve kernel also takes bf16
+# dtypes of the finalize step and of the sparse kernels K9-K12
 KERNEL_DTYPES = (torch.float32, torch.float64)
+# dtypes of K1-K4: bf16 is storage, computed in float32 with float32 scalars
+# and partials (config.scalar_dtype)
+STENCIL_DTYPES = (*KERNEL_DTYPES, torch.bfloat16)
 
 
 def check_tensors(ref: torch.Tensor, dtypes=KERNEL_DTYPES, **tensors) -> None:

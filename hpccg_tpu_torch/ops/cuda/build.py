@@ -43,9 +43,11 @@ _SIGNATURES = {
     "hpccg_stencil_num_blocks": [_I, _I, _I],
     "hpccg_stencil_f32": [_P] * 11 + [_I] * 6 + [_P],
     "hpccg_stencil_f64": [_P] * 11 + [_I] * 6 + [_P],
+    "hpccg_stencil_bf16": [_P] * 11 + [_I] * 6 + [_P],
     "hpccg_update_num_blocks": [_LL],
     "hpccg_update_x_r_f32": [_P] * 7 + [_LL, _P],
     "hpccg_update_x_r_f64": [_P] * 7 + [_LL, _P],
+    "hpccg_update_x_r_bf16": [_P] * 7 + [_LL, _P],
     "hpccg_finalize_f32": [_P, _I, _P, _P, _P, _I, _P],
     "hpccg_finalize_f64": [_P, _I, _P, _P, _P, _I, _P],
     "hpccg_wholesolve_num_blocks": [_I] * 6,
@@ -66,6 +68,8 @@ _SIGNATURES = {
     "hpccg_collective_dia_block_rows": [],
     "hpccg_collective_dia_f32": [_P] * 5 + [_I, _I, _LL] + [_I] * 5 + [ctypes.c_double, _LL, _P],
     "hpccg_collective_dia_f64": [_P] * 5 + [_I, _I, _LL] + [_I] * 5 + [ctypes.c_double, _LL, _P],
+    "hpccg_stream_copy_f32": [_P, _P, _LL, _P],
+    "hpccg_stream_write_f32": [_P, _LL, _P, _LL, _P],
 }
 
 

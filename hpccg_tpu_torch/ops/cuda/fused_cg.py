@@ -8,7 +8,11 @@ wrappers, plain versions and launch counters.
 
 The scalars never leave the device inside an iteration. Each wrapper runs
 its plain version only for CPU tensors; for CUDA tensors it launches the
-kernel or raises, and counts its launches in ``<wrapper>.launches``.
+kernel or raises, and counts its launches in ``<wrapper>.launches`` (K4's
+bf16 instance in ``launches_bf16`` as well). K4 takes float32, float64 and
+bfloat16 vectors; for bf16, alpha and the partials are float32
+(``config.scalar_dtype``), the updates computed in float32 and rounded to
+bf16 as they are stored, r . r summed over the stored r.
 """
 
 from __future__ import annotations
@@ -17,7 +21,8 @@ import dataclasses
 
 import torch
 
-from hpccg_tpu_torch.ops.cuda import check_tensors
+from hpccg_tpu_torch.config import scalar_dtype
+from hpccg_tpu_torch.ops.cuda import STENCIL_DTYPES, check_tensors
 from hpccg_tpu_torch.ops.cuda.build import check_launch, load_library
 
 # indices into CGScalars.sc and .ic; the same numbers as csrc/fused_cg.cu
@@ -44,10 +49,13 @@ class CGScalars:
     @classmethod
     def new(cls, dtype, max_iter: int, tolerance: float, device) -> "CGScalars":
         """``dtype`` is the scalars' own dtype, which the caller picks apart
-        from the vectors': the vectors' dtype for the per-iteration backends
-        (all-bf16 on ``stencil``, as the JAX package's cg_solve), and
-        ``config.scalar_dtype`` of it (f32 for bf16 vectors) for the
-        whole-solve kernels."""
+        from the vectors': ``config.scalar_dtype`` of the vectors' dtype
+        (float32 for bf16 vectors) wherever a kernel runs, on the
+        per-iteration kernel backends as in the whole-solve kernels; the
+        vectors' dtype on the plain ``stencil`` backend (all-bf16, as the
+        JAX package's cg_solve). JAX's per-iteration Pallas backends keep a
+        bf16 recurrence (``stencil_v2.py:344-346``, ``fused_cg.py:120-125``);
+        the port's differ there (ROADMAP, known divergences)."""
         sc = torch.zeros((8,), dtype=dtype, device=device)
         sc[SC_TOL] = tolerance
         ic = torch.zeros((4,), dtype=torch.int32, device=device)
@@ -83,43 +91,50 @@ def num_update_partials(n: int, device) -> int:
 
 
 def update_x_r_plain(x, r, p, ap, alpha, *, partials=None, active=None):
-    """Plain torch K4: x += alpha p; r -= alpha Ap (in place); [r . r]."""
+    """Plain torch K4: x += alpha p; r -= alpha Ap (in place); [r . r].
+    Computed in the scalar dtype, one rounding per operation (bf16 vectors:
+    in float32, rounded to bf16 where stored; r . r over the stored r)."""
+    sdt = scalar_dtype(x.dtype)
     if partials is None:
-        partials = torch.empty((1,), dtype=x.dtype, device=x.device)
+        partials = torch.empty((1,), dtype=sdt, device=x.device)
     if active is not None and int(active.item()) == 0:
         return x, r, partials
-    x.addcmul_(alpha, p)
-    r.addcmul_(alpha, ap, value=-1)
-    partials.copy_(torch.dot(r.reshape(-1), r.reshape(-1)).reshape(1))
+    x.copy_(x.to(sdt) + alpha * p.to(sdt))
+    r.copy_(r.to(sdt) - alpha * ap.to(sdt))
+    r32 = r.reshape(-1).to(sdt)
+    partials.copy_(torch.dot(r32, r32).reshape(1))
     return x, r, partials
 
 
 def update_x_r(x, r, p, ap, alpha, *, partials=None, active=None):
     """K4: x += alpha p and r -= alpha Ap, in place; per-block partials of
     the new r . r. Returns (x, r, partials)."""
-    shape = tuple(x.shape)
-    check_tensors(x, x=(x, None, None), r=(r, shape, None), p=(p, shape, None),
-                  ap=(ap, shape, None), alpha=(alpha, (1,), None),
+    shape, sdt = tuple(x.shape), scalar_dtype(x.dtype)
+    check_tensors(x, STENCIL_DTYPES, x=(x, None, None), r=(r, shape, None), p=(p, shape, None),
+                  ap=(ap, shape, None), alpha=(alpha, (1,), sdt),
                   active=(active, (1,), torch.int32))
     n = x.numel()
     nparts = num_update_partials(n, x.device)
     if partials is None:
-        partials = torch.empty((nparts,), dtype=x.dtype, device=x.device)
-    check_tensors(x, partials=(partials, (nparts,), None))
+        partials = torch.empty((nparts,), dtype=sdt, device=x.device)
+    check_tensors(x, STENCIL_DTYPES, partials=(partials, (nparts,), sdt))
     if x.device.type == "cpu":
         return update_x_r_plain(x, r, p, ap, alpha, partials=partials, active=active)
     lib = load_library()
-    fn = lib.hpccg_update_x_r_f32 if x.dtype == torch.float32 else lib.hpccg_update_x_r_f64
+    fn = {torch.float32: lib.hpccg_update_x_r_f32, torch.float64: lib.hpccg_update_x_r_f64,
+          torch.bfloat16: lib.hpccg_update_x_r_bf16}[x.dtype]
     # the C entry points launch on the current device, which must be the stream's
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), r.data_ptr(), p.data_ptr(), ap.data_ptr(), alpha.data_ptr(),
                  partials.data_ptr(), None if active is None else active.data_ptr(), n, _stream(x))
     check_launch(err, "update_x_r kernel")
     update_x_r.launches += 1
+    if x.dtype == torch.bfloat16:
+        update_x_r.launches_bf16 += 1
     return x, r, partials
 
 
-update_x_r.launches = 0
+update_x_r.launches = update_x_r.launches_bf16 = 0
 
 
 # ---------------------------------------------------------------- finalize

@@ -11,7 +11,12 @@ plain versions and launch counters.
   (hi, lo) float32 pairs because the TPU has no f64; Hopper has native f64).
 
 Vectors are contiguous (nz, ny, nx) tensors, the flat row-major layout of
-the JAX package viewed as a grid. Halos are external z-planes for a shard,
+the JAX package viewed as a grid, in float32, float64 or bfloat16 (K7:
+float64 only). bf16 is storage: the kernels and the plain versions compute
+in float32 and round to bf16 where they store (p' as it is formed, so Ap'
+is A of the stored p'; y and Ap' when they are written), and the partials
+sum the stored values; ``beta`` and the partials are then float32
+(``config.scalar_dtype``). Halos are external z-planes for a shard,
 (2, ny, nx) [below, above] for K1/K2 and (4, ny, nx) [r_below, r_above,
 p_below, p_above] for K3; None is the domain boundary. ``beta`` is a
 1-element device tensor; ``active`` an optional 1-element int32 tensor: at 0
@@ -27,8 +32,9 @@ from __future__ import annotations
 
 import torch
 
+from hpccg_tpu_torch.config import scalar_dtype
 from hpccg_tpu_torch.operators import StencilOperator, apply_grid
-from hpccg_tpu_torch.ops.cuda import check_tensors
+from hpccg_tpu_torch.ops.cuda import STENCIL_DTYPES, check_tensors
 from hpccg_tpu_torch.ops.cuda.build import check_launch, load_library
 
 
@@ -40,10 +46,10 @@ def num_partials(op: StencilOperator, device) -> int:
 
 
 def _partials(op, ref, partials):
-    n = num_partials(op, ref.device)
+    n, sdt = num_partials(op, ref.device), scalar_dtype(ref.dtype)
     if partials is None:
-        return torch.empty((n,), dtype=ref.dtype, device=ref.device)
-    check_tensors(ref, partials=(partials, (n,), None))
+        return torch.empty((n,), dtype=sdt, device=ref.device)
+    check_tensors(ref, STENCIL_DTYPES, partials=(partials, (n,), sdt))
     return partials
 
 
@@ -52,11 +58,19 @@ def _inactive(active) -> bool:
 
 
 def _apply_halo(op: StencilOperator, u: torch.Tensor, below, above) -> torch.Tensor:
-    """A u on the grid, with external planes at z = -1 and z = nz."""
+    """A u on the grid, with external planes at z = -1 and z = nz, in the
+    scalar dtype (float32 for bf16 u)."""
+    sdt = scalar_dtype(u.dtype)
     if below is None:
-        return apply_grid(u, op.stencil)
-    ext = torch.cat([below.unsqueeze(0), u, above.unsqueeze(0)], 0)
+        return apply_grid(u.to(sdt), op.stencil)
+    ext = torch.cat([below.unsqueeze(0), u, above.unsqueeze(0)], 0).to(sdt)
     return apply_grid(ext, op.stencil)[1:-1]
+
+
+def _dot(u, v) -> torch.Tensor:
+    """[u . v] in the scalar dtype (a float32 sum of bf16 values)."""
+    sdt = scalar_dtype(u.dtype)
+    return torch.dot(u.reshape(-1).to(sdt), v.reshape(-1).to(sdt)).reshape(1)
 
 
 def _no_alias(out, *inputs) -> None:
@@ -70,7 +84,8 @@ def _ptr(t):
 
 def _launch(op, u, v, beta, halo_u, halo_v, out_p, out_y, partials, active, fuse_p, pap):
     lib = load_library()
-    fn = lib.hpccg_stencil_f32 if u.dtype == torch.float32 else lib.hpccg_stencil_f64
+    fn = {torch.float32: lib.hpccg_stencil_f32, torch.float64: lib.hpccg_stencil_f64,
+          torch.bfloat16: lib.hpccg_stencil_bf16}[u.dtype]
     hb_u, ha_u = (None, None) if halo_u is None else (halo_u[0], halo_u[1])
     hb_v, ha_v = (None, None) if halo_v is None else (halo_v[0], halo_v[1])
     # the C entry points launch on the current device, which must be the stream's
@@ -85,6 +100,14 @@ def _launch(op, u, v, beta, halo_u, halo_v, out_p, out_y, partials, active, fuse
 
 
 _ACTIVE = ((1,), torch.int32)
+
+
+def _count(wrapper, dtype) -> None:
+    """One launch on ``wrapper.launches``, and on ``launches_bf16`` too for
+    the bf16 instance."""
+    wrapper.launches += 1
+    if dtype == torch.bfloat16:
+        wrapper.launches_bf16 += 1
 
 
 # --------------------------------------------------------------------- K1
@@ -103,7 +126,7 @@ def spmv_stencil_plain(op, u, halo=None, *, out=None, active=None):
 def spmv_stencil(op: StencilOperator, u, halo=None, *, out=None, active=None):
     """K1: y = A u on the (nz, ny, nx) grid (CUDA kernel; plain on the CPU)."""
     grid = (op.nz, op.ny, op.nx)
-    check_tensors(u, u=(u, grid, None), halo=(halo, (2, op.ny, op.nx), None),
+    check_tensors(u, STENCIL_DTYPES, u=(u, grid, None), halo=(halo, (2, op.ny, op.nx), None),
                   out=(out, grid, None), active=(active, *_ACTIVE))
     _no_alias(out, u)
     if u.device.type == "cpu":
@@ -111,11 +134,11 @@ def spmv_stencil(op: StencilOperator, u, halo=None, *, out=None, active=None):
     if out is None:
         out = torch.empty_like(u)
     _launch(op, u, None, None, halo, None, None, out, None, active, False, False)
-    spmv_stencil.launches += 1
+    _count(spmv_stencil, u.dtype)
     return out
 
 
-spmv_stencil.launches = 0
+spmv_stencil.launches = spmv_stencil.launches_bf16 = 0
 
 
 # --------------------------------------------------------------------- K2
@@ -126,11 +149,11 @@ def spmv_stencil_pap_plain(op, u, halo=None, *, out=None, partials=None, active=
     if out is None:
         out = torch.empty_like(u)
     if partials is None:
-        partials = torch.empty((1,), dtype=u.dtype, device=u.device)
+        partials = torch.empty((1,), dtype=scalar_dtype(u.dtype), device=u.device)
     if _inactive(active):
         return out, partials
     spmv_stencil_plain(op, u, halo, out=out)
-    partials.copy_(torch.dot(u.reshape(-1), out.reshape(-1)).reshape(1))
+    partials.copy_(_dot(u, out))
     return out, partials
 
 
@@ -138,7 +161,7 @@ def _k2(counter, op, u, halo, out, partials, active):
     """K2's checks and launch, shared with K7; a launch is counted in
     ``counter.launches``."""
     grid = (op.nz, op.ny, op.nx)
-    check_tensors(u, u=(u, grid, None), halo=(halo, (2, op.ny, op.nx), None),
+    check_tensors(u, STENCIL_DTYPES, u=(u, grid, None), halo=(halo, (2, op.ny, op.nx), None),
                   out=(out, grid, None), active=(active, *_ACTIVE))
     _no_alias(out, u)
     partials = _partials(op, u, partials)
@@ -147,7 +170,7 @@ def _k2(counter, op, u, halo, out, partials, active):
     if out is None:
         out = torch.empty_like(u)
     _launch(op, u, None, None, halo, None, None, out, partials, active, False, True)
-    counter.launches += 1
+    _count(counter, u.dtype)
     return out, partials
 
 
@@ -156,7 +179,7 @@ def spmv_stencil_pap(op: StencilOperator, u, halo=None, *, out=None, partials=No
     return _k2(spmv_stencil_pap, op, u, halo, out, partials, active)
 
 
-spmv_stencil_pap.launches = 0
+spmv_stencil_pap.launches = spmv_stencil_pap.launches_bf16 = 0
 
 
 # --------------------------------------------------------------------- K7
@@ -178,7 +201,7 @@ def spmv_stencil_pap_dd(op: StencilOperator, u, halo=None, *, out=None, partials
     return _k2(spmv_stencil_pap_dd, op, u, halo, out, partials, active)
 
 
-spmv_stencil_pap_dd.launches = 0
+spmv_stencil_pap_dd.launches = spmv_stencil_pap_dd.launches_bf16 = 0
 
 
 # --------------------------------------------------------------------- K3
@@ -189,16 +212,21 @@ def update_p_apply_plain(op, r, p, beta, halo=None, *, out_p=None, out_ap=None,
     """Plain torch K3: (p' = r + beta p, Ap' = A p', [p' . Ap'])."""
     out_p = torch.empty_like(r) if out_p is None else out_p
     out_ap = torch.empty_like(r) if out_ap is None else out_ap
+    sdt = scalar_dtype(r.dtype)
     if partials is None:
-        partials = torch.empty((1,), dtype=r.dtype, device=r.device)
+        partials = torch.empty((1,), dtype=sdt, device=r.device)
     if _inactive(active):
         return out_p, out_ap, partials
-    out_p.copy_(r + beta * p)
+
+    def xpby(a, b):  # a + beta b in the scalar dtype, stored in the vectors' dtype
+        return (a.to(sdt) + beta * b.to(sdt)).to(r.dtype)
+
+    out_p.copy_(xpby(r, p))
     below = above = None
     if halo is not None:
-        below, above = halo[0] + beta * halo[2], halo[1] + beta * halo[3]
+        below, above = xpby(halo[0], halo[2]), xpby(halo[1], halo[3])
     out_ap.copy_(_apply_halo(op, out_p, below, above))
-    partials.copy_(torch.dot(out_p.reshape(-1), out_ap.reshape(-1)).reshape(1))
+    partials.copy_(_dot(out_p, out_ap))
     return out_p, out_ap, partials
 
 
@@ -209,9 +237,9 @@ def update_p_apply(op: StencilOperator, r, p, beta, halo=None, *, out_p=None, ou
     ``out_p`` must not alias ``p``: blocks read their neighbours' planes of p
     while others write p'."""
     grid = (op.nz, op.ny, op.nx)
-    check_tensors(r, r=(r, grid, None), p=(p, grid, None), beta=(beta, (1,), None),
-                  halo=(halo, (4, op.ny, op.nx), None), out_p=(out_p, grid, None),
-                  out_ap=(out_ap, grid, None), active=(active, *_ACTIVE))
+    check_tensors(r, STENCIL_DTYPES, r=(r, grid, None), p=(p, grid, None),
+                  beta=(beta, (1,), scalar_dtype(r.dtype)), halo=(halo, (4, op.ny, op.nx), None),
+                  out_p=(out_p, grid, None), out_ap=(out_ap, grid, None), active=(active, *_ACTIVE))
     _no_alias(out_p, r, p)
     _no_alias(out_ap, r, p)
     partials = _partials(op, r, partials)
@@ -223,8 +251,8 @@ def update_p_apply(op: StencilOperator, r, p, beta, halo=None, *, out_p=None, ou
     halo_r = None if halo is None else halo[0:2]
     halo_p = None if halo is None else halo[2:4]
     _launch(op, r, p, beta, halo_r, halo_p, out_p, out_ap, partials, active, True, True)
-    update_p_apply.launches += 1
+    _count(update_p_apply, r.dtype)
     return out_p, out_ap, partials
 
 
-update_p_apply.launches = 0
+update_p_apply.launches = update_p_apply.launches_bf16 = 0

@@ -38,7 +38,7 @@ import dataclasses
 
 import torch
 
-from hpccg_tpu_torch.config import ProblemConfig
+from hpccg_tpu_torch.config import ProblemConfig, scalar_dtype
 from hpccg_tpu_torch.models.stencil import Problem
 from hpccg_tpu_torch.operators import DiaMatrix, DiaRows, EllMatrix, StencilOperator, band
 from hpccg_tpu_torch.ops.cuda.dia import MAX_DIAGS, prepare_dia, spmv_dia
@@ -89,16 +89,17 @@ def generate_problem_sharded(cfg_local: ProblemConfig, mesh: Mesh, *, axis: Axis
 
 
 def resolve_distributed_backend(cfg_local: ProblemConfig, backend: str = "auto", device="cuda") -> str:
-    """``auto`` -> on CUDA ``pallas`` for float32 and ``pallas_dd`` for
-    float64 (K2 / K7 with halo planes; bfloat16, which K1-K4 do not take
-    yet, runs ``stencil``), ``stencil`` on the CPU."""
+    """``auto`` -> on CUDA ``pallas`` for float32 and bfloat16 (K2 with
+    halo planes; JAX picks it for 2-byte state, ``hpccg_tpu/parallel/
+    cg.py:156-158``) and ``pallas_dd`` for float64 (K7), ``stencil`` on the
+    CPU."""
     if backend not in DISTRIBUTED_BACKENDS:
         raise ValueError(f"unknown distributed backend {backend!r} (choose from {DISTRIBUTED_BACKENDS})")
     if backend != "auto":
         return backend
     if torch.device(device).type != "cuda":
         return "stencil"
-    return {torch.float32: "pallas", torch.float64: "pallas_dd"}.get(cfg_local.dtype, "stencil")
+    return "pallas_dd" if cfg_local.dtype == torch.float64 else "pallas"
 
 
 def _method_runner(method: str, replace_every: int = 0):
@@ -136,6 +137,9 @@ def make_distributed_cg(
     ``pallas_dd`` (K7, float64), ``pallas_v1`` (K1 and torch dots),
     ``pallas_fused`` (K3 with four planes, K4), ``collective`` (the whole
     solve in one launch of K15/K16); ``auto`` as resolve_distributed_backend.
+    bf16 shards (and halo planes) run on every backend but ``pallas_dd`` and
+    ``collective``, with float32 scalars on the kernel backends, as on one
+    device.
     Methods ``cg``, ``cg1``, ``pipecg``: the one-reduction methods run their
     matvec on ``stencil``, K1 (``pallas``, ``pallas_v1``; ``pallas_fused``
     warns and runs ``pallas``, as on one device) or K7 (``pallas_dd``), and
@@ -195,20 +199,22 @@ def make_distributed_cg(
         return lambda b, x0: cg_solve_fused(op, shards(b), shards(x0), halo2=halo.planes2,
                                             halo4=halo.planes4, **kw)
 
+    sdt = scalar_dtype(cfg_local.dtype)
     if which in ("pallas", "pallas_dd"):
         def solve_pap(b, x0):
             bs = shards(b)
-            parts = RankPartials([num_partials(op, v.device) for v in bs], bs[0].dtype, mesh.devices)
+            parts = RankPartials([num_partials(op, v.device) for v in bs], sdt, mesh.devices)
 
             def matvec_pap(p, Ap, active):
                 return kernel_matvec_pap(op, halo, p, Ap, parts, active, dd=which == "pallas_dd")
 
-            return cg_solve(lambda vs: kernel_matvec(op, halo, vs), bs, shards(x0), matvec_pap=matvec_pap, **kw)
+            return cg_solve(lambda vs: kernel_matvec(op, halo, vs), bs, shards(x0), matvec_pap=matvec_pap,
+                            scalars=sdt, **kw)
 
         return solve_pap
 
     if which == "pallas_v1":
-        return lambda b, x0: cg_solve(make_matvec(), shards(b), shards(x0), **kw)
+        return lambda b, x0: cg_solve(make_matvec(), shards(b), shards(x0), scalars=sdt, **kw)
     return lambda b, x0: cg_solve(make_matvec(), shards(b), shards(x0), finalize=cg_finalize_plain, **kw)
 
 

@@ -31,13 +31,8 @@ from typing import Optional
 
 import torch
 
-from hpccg_tpu_torch.operators import StencilOperator
-from hpccg_tpu_torch.ops.cuda.stencil import (
-    spmv_stencil,
-    spmv_stencil_pap,
-    spmv_stencil_pap_dd,
-    spmv_stencil_plain,
-)
+from hpccg_tpu_torch.operators import StencilOperator, apply_grid
+from hpccg_tpu_torch.ops.cuda.stencil import spmv_stencil, spmv_stencil_pap, spmv_stencil_pap_dd
 
 
 def exchange_halo(grids) -> list:
@@ -54,9 +49,14 @@ def exchange_halo(grids) -> list:
 
 def stencil_matvec_halo(op: StencilOperator, vs) -> tuple:
     """Distributed A v (``op`` holds one rank's dims): the plain halo'd
-    stencil on each rank, flat shards in and out."""
+    stencil on each rank, flat shards in and out, in the vectors' dtype
+    (all-bf16 for bf16, as the single-device ``stencil`` backend)."""
     grids = [op.grid(v) for v in vs]
-    return tuple(spmv_stencil_plain(op, u, torch.stack(h)).reshape(-1) for u, h in zip(grids, exchange_halo(grids)))
+    out = []
+    for u, (below, above) in zip(grids, exchange_halo(grids)):
+        ext = torch.cat([below.unsqueeze(0), u, above.unsqueeze(0)], 0)
+        out.append(apply_grid(ext, op.stencil)[1:-1].reshape(-1))
+    return tuple(out)
 
 
 class HaloPlanes:

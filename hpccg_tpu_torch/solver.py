@@ -43,10 +43,15 @@ Backends (the JAX package's names, so ``--backend`` means the same):
   with float32 scalars, so the two give results of different precision.
 
 bfloat16 state: ``stencil`` runs the JAX package's all-bf16 ``cg_solve``
-(vectors, scalars and trace in bf16; JAX ``solver.py:83-92``);
-``megakernel`` and ``streamkernel`` keep the reductions, the scalars and the
-trace in float32 (``config.scalar_dtype``). K1-K4 have no bf16 instance yet,
-so the other kernel backends refuse bf16.
+(vectors, scalars and trace in bf16; JAX ``solver.py:83-92``). The kernel
+backends ``pallas``, ``pallas_fused``, ``pallas_v1``, ``megakernel`` and
+``streamkernel`` store the vectors in bf16 and keep the reductions, the
+scalars and the trace in float32 (``config.scalar_dtype``): K1-K4's bf16
+instances compute in f32 and round to bf16 where they store, and the torch
+axpys of ``pallas`` / ``pallas_v1`` compute in f32 and store bf16 too. JAX's
+``pallas`` keeps its scalars in bf16 there (ROADMAP, known divergences).
+``pallas_dd`` is float64 only. cg1 and pipecg keep their scalars in the
+vectors' dtype on every backend, as in the JAX package.
 
 On the CPU the kernel backends run the kernels' plain versions. The
 per-iteration kernel backends compute the initial Ap with K1.
@@ -86,6 +91,7 @@ from typing import Callable, Optional
 
 import torch
 
+from hpccg_tpu_torch.config import scalar_dtype
 from hpccg_tpu_torch.operators import DiaMatrix, EllMatrix, StencilOperator
 from hpccg_tpu_torch.ops.cuda.dia import prepare_dia
 from hpccg_tpu_torch.ops.cuda.ell import prepare_ell
@@ -116,8 +122,8 @@ from hpccg_tpu_torch.ops.cuda.streamkernel import cg_solve_stream
 BACKENDS = ("auto", "stencil", "pallas", "pallas_fused", "pallas_dd", "pallas_v1", "megakernel",
             "streamkernel")
 WHOLE_SOLVE_BACKENDS = ("megakernel", "streamkernel")  # one launch per solve
-# the backends that take bfloat16 state
-BF16_BACKENDS = ("stencil", *WHOLE_SOLVE_BACKENDS)
+# the backends that take bfloat16 state (pallas_dd is float64 only)
+BF16_BACKENDS = ("stencil", "pallas", "pallas_fused", "pallas_v1", *WHOLE_SOLVE_BACKENDS)
 # what an explicit matrix (EllMatrix, DiaMatrix) dispatches on; other names
 # apply to the stencil operator only
 EXPLICIT_BACKENDS = ("auto", "stencil", "ell", "dia")
@@ -175,11 +181,34 @@ def _sharded_fn(fn, flat: bool):
     return (lambda v: (fn(v[0]),)) if flat else fn
 
 
-def _dot_parts(us, vs, device) -> torch.Tensor:
-    """Per-rank partials of u . v, in rank order, on ``device``."""
+def _dot(u, v, dtype) -> torch.Tensor:
+    """u . v as a ``dtype`` scalar, the dtype of the recurrence's scalars.
+    For bf16 vectors with float32 scalars, torch.dot would return bf16:
+    r . r is then the square of ``vector_norm(dtype=float32)``, whose CUDA
+    kernel upcasts as it loads and sums in f32 (no f32 copy of r; the
+    squared norm is within an f32 rounding of the sum of squares); u . v of
+    two vectors (``pallas_v1``'s p . Ap) takes f32 copies of both, two
+    vector writes and reads more than the dot itself."""
+    if u.dtype == dtype:
+        return torch.dot(u, v)
+    if u is v:
+        return torch.linalg.vector_norm(u, dtype=dtype).square()
+    return torch.dot(u.to(dtype), v.to(dtype))
+
+
+def _dot_parts(us, vs, device, dtype=None) -> torch.Tensor:
+    """Per-rank partials of u . v, in rank order, on ``device``, in
+    ``dtype`` (default: the vectors')."""
+    dtype = dtype or us[0].dtype
     if len(us) == 1:
-        return torch.dot(us[0], vs[0]).reshape(1)
-    return torch.cat([torch.dot(u, v).reshape(1).to(device) for u, v in zip(us, vs)])
+        return _dot(us[0], vs[0], dtype).reshape(1)
+    return torch.cat([_dot(u, v, dtype).reshape(1).to(device) for u, v in zip(us, vs)])
+
+
+def _xpby(x, beta, y):
+    """x + beta y in the common dtype (float32 for bf16 vectors and float32
+    beta), stored in x's dtype."""
+    return torch.addcmul(x, beta, y, out=torch.empty_like(x))
 
 
 def _sub(a, b) -> tuple:
@@ -215,9 +244,13 @@ def cg_solve(
     matvec_pap: Optional[Callable] = None,
     finalize: Callable = cg_finalize,
     check_every: Optional[int] = None,
+    scalars: Optional[torch.dtype] = None,
 ) -> CGResult:
     """Run CG (the reference recurrence) on flat (n,) vectors or on sharded
     vectors (tuples of per-rank shards; the result's x is a tuple then).
+    The scalars, the dots and the trace are of dtype ``scalars`` (default:
+    the vectors'; the kernel backends pass float32 for bf16 vectors); the
+    vector updates compute in the common dtype and store the vectors'.
 
     ``matvec_pap(p, Ap, active) -> partials``: optional fused variant that
     writes A p into ``Ap`` and returns the partials of p . Ap (K2; for
@@ -234,27 +267,28 @@ def cg_solve(
     if matvec_pap is not None:
         pap = (lambda p, ap, act: matvec_pap(p[0], ap[0], act)) if flat else matvec_pap
     check_every = check_every or default_check_every(dev)
-    st = CGScalars.new(bs[0].dtype, max_iter, tolerance, dev)
+    sdt = scalars or bs[0].dtype
+    st = CGScalars.new(sdt, max_iter, tolerance, dev)
     Ap = mv(x0s)
     r = _sub(bs, Ap)
-    finalize(_dot_parts(r, r, dev), st, STEP_INIT)
+    finalize(_dot_parts(r, r, dev, sdt), st, STEP_INIT)
     x = tuple(v.clone() for v in x0s)
     p = x0s
     for it in range(max_iter - 1):
         if _stopped(st, it, check_every):
             break
-        p = tuple(torch.addcmul(ri, st.beta.to(ri.device), pi) for ri, pi in zip(r, p))
+        p = tuple(_xpby(ri, st.beta.to(ri.device), pi) for ri, pi in zip(r, p))
         if pap is not None:
             part = pap(p, Ap, st.active)
         else:
             Ap = mv(p)
-            part = _dot_parts(p, Ap, dev)
+            part = _dot_parts(p, Ap, dev, sdt)
         finalize(part, st, STEP_PAP)
         for xi, ri, pi, ai in zip(x, r, p, Ap):
             alpha = st.alpha.to(xi.device)
             xi.addcmul_(alpha, pi)
             ri.addcmul_(alpha, ai, value=-1)
-        finalize(_dot_parts(r, r, dev), st, STEP_RR)
+        finalize(_dot_parts(r, r, dev, sdt), st, STEP_RR)
     return _result(x[0] if flat else x, st)
 
 
@@ -286,15 +320,16 @@ def cg_solve_fused(
     halo4 = halo4 or (lambda rs, ps: none)
     check_every = check_every or default_check_every(dev)
     g = op.grid
-    st = CGScalars.new(bs[0].dtype, max_iter, tolerance, dev)
+    sdt = scalar_dtype(bs[0].dtype)
+    st = CGScalars.new(sdt, max_iter, tolerance, dev)
     Ap = tuple(spmv_stencil(op, g(v), h).reshape(-1) for v, h in zip(x0s, halo2(x0s)))
     r = _sub(bs, Ap)
-    cg_finalize(_dot_parts(r, r, dev), st, STEP_INIT)
+    cg_finalize(_dot_parts(r, r, dev, sdt), st, STEP_INIT)
     x = tuple(v.clone() for v in x0s)
     p = tuple(v.clone() for v in x0s)
     p_next = tuple(torch.empty_like(v) for v in p)
-    part3 = RankPartials([num_partials(op, d) for d in devs], bs[0].dtype, devs)
-    part4 = RankPartials([num_update_partials(v.numel(), v.device) for v in bs], bs[0].dtype, devs)
+    part3 = RankPartials([num_partials(op, d) for d in devs], sdt, devs)
+    part4 = RankPartials([num_update_partials(v.numel(), v.device) for v in bs], sdt, devs)
     for it in range(max_iter - 1):
         if _stopped(st, it, check_every):
             break
@@ -527,11 +562,13 @@ def resolve_backend(backend: str, device, dtype=None) -> str:
 
 
 def _check_dtype(backend: str, dtype) -> None:
-    """Refuse a dtype the backend's kernels do not take."""
+    """Refuse a dtype the backend's kernels do not take: ``pallas_dd``
+    takes float64 only, every other backend float32, float64 and
+    bfloat16."""
     if backend == "pallas_dd":
         require_f64(dtype)
     if dtype == torch.bfloat16 and backend not in BF16_BACKENDS + ("auto",):
-        raise ValueError(f"backend {backend!r} has no bfloat16 kernels yet; bfloat16 state runs on "
+        raise ValueError(f"backend {backend!r} takes no bfloat16; bfloat16 state runs on "
                          f"{', '.join(BF16_BACKENDS)}")
 
 
@@ -662,17 +699,18 @@ def make_cg(
             return whole(A, b, x0, max_iter=max_iter, tolerance=tolerance)
         if which == "pallas_fused":
             return cg_solve_fused(A, b, x0, **kw)
+        sdt = scalar_dtype(b.dtype)
         if which == "pallas_v1":
-            return cg_solve(lambda v: spmv_stencil(A, g(v)).reshape(-1), b, x0, **kw)
+            return cg_solve(lambda v: spmv_stencil(A, g(v)).reshape(-1), b, x0, scalars=sdt, **kw)
         if which in ("pallas", "pallas_dd"):
-            part = torch.empty((num_partials(A, b.device),), dtype=b.dtype, device=b.device)
+            part = torch.empty((num_partials(A, b.device),), dtype=sdt, device=b.device)
             k2 = spmv_stencil_pap_dd if which == "pallas_dd" else spmv_stencil_pap
 
             def matvec_pap(p, Ap, active):
                 return k2(A, g(p), out=g(Ap), partials=part, active=active)[1]
 
             return cg_solve(lambda v: spmv_stencil(A, g(v)).reshape(-1), b, x0,
-                            matvec_pap=matvec_pap, **kw)
+                            matvec_pap=matvec_pap, scalars=sdt, **kw)
         return cg_solve(A.matvec, b, x0, finalize=cg_finalize_plain, **kw)
 
     return solve

@@ -56,3 +56,22 @@ def time_loop_slope(
         slopes.append((t_long - t_short) / (long - short))
     # 0.0 = "below timer resolution", as the reference's golden run reports
     return max(statistics.median(slopes), 0.0)
+
+
+def graph_legs(run: Callable[[int], object], legs, device) -> Callable[[int], object]:
+    """``run(k)`` for each k in ``legs`` captured once as a CUDA graph on
+    ``device``; returns replay(k), which replays that graph. A loop of
+    launches that the host cannot issue as fast as the card runs them is
+    then timed on the card (the counterpart of a jitted device-side loop).
+    On the CPU it returns ``run`` itself."""
+    if torch.device(device).type != "cuda":
+        return run
+    graphs = {}
+    for k in legs:
+        run(k)  # warm: builds and loads anything the launches need
+        fence(device)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            run(k)
+        graphs[k] = graph
+    return lambda k: graphs[k].replay()

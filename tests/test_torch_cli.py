@@ -85,8 +85,8 @@ def test_not_yet_ported_flags_exit_2(extra, capsys):
                                    ["--dtype", "bfloat16"]])
 def test_whole_solve_backends_and_bf16(extra):
     """The whole-solve backends report DDOT and WAXPBY as fused into the
-    solve (empty, with a note); bf16 leaves SPARSEMV empty (K1 has no bf16
-    instance yet)."""
+    solve (empty, with a note); bf16 times SPARSEMV on K1's bf16 instance
+    (its plain version here)."""
     rc, out = _run(main, ["6", "5", "4", "--device", "cpu", "--quiet", "--json", "--max-iter", "20",
                           "--validate"] + extra)
     assert rc == 0
@@ -98,8 +98,23 @@ def test_whole_solve_backends_and_bf16(extra):
     assert (ts["DDOT    "] != ts["DDOT    "]) == whole and (ts["WAXPBY  "] != ts["WAXPBY  "]) == whole
     assert ("fused into the whole-solve kernel" in note) == whole
     bf16 = "bfloat16" in extra
-    assert (ts["SPARSEMV"] != ts["SPARSEMV"]) == bf16 and ("no bfloat16 instance" in note) == bf16
+    assert ts["SPARSEMV"] == ts["SPARSEMV"] and "no bfloat16 instance" not in note
     assert rep["Dimensions"]["dtype"] == ("bfloat16" if bf16 else "float64")
+
+
+@pytest.mark.parametrize("backend", ["pallas", "pallas_fused", "pallas_v1"])
+def test_bf16_on_the_per_iteration_kernel_backends(backend):
+    """--dtype bfloat16 runs on K1-K4's bf16 instances (their plain versions
+    here): every row timed but pallas_fused's DDOT, which is fused into
+    K3/K4."""
+    rc, out = _run(main, ["6", "5", "4", "--device", "cpu", "--quiet", "--json", "--max-iter", "20",
+                          "--dtype", "bfloat16", "--backend", backend])
+    assert rc == 0
+    rep = _report(out)
+    assert rep["Number of iterations"] == 19 and rep["Dimensions"]["dtype"] == "bfloat16"
+    ts = rep["Time Summary"]
+    assert ts["SPARSEMV"] == ts["SPARSEMV"] and ts["WAXPBY  "] == ts["WAXPBY  "]
+    assert (ts["DDOT    "] != ts["DDOT    "]) == (backend == "pallas_fused")
 
 
 def test_pallas_dd_refuses_float32(capsys):

@@ -554,3 +554,127 @@ def test_collective_dia_refuses_bf16_and_several_cards(cuda_device):
         mesh = make_mesh(2)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_collective_dia_cg(mesh, max_iter=5)(tuple(blk for blk in prob.A), prob.b, prob.x0)
+
+
+# ------------------------------------- bf16 K1-K4 and the bandwidth probes
+
+from hpccg_tpu_torch.ops.cuda import stream  # noqa: E402
+
+
+def _ulps_of_max(got, want) -> float:
+    """max|got - want| in bf16 ulps of max|want| (2^-7 of its power of 2)."""
+    scale = float(want.float().abs().max()) or 1.0
+    ulp = 2.0 ** (int(torch.floor(torch.log2(torch.tensor(scale)))) - 7)
+    return float((got.float() - want.float()).abs().max()) / ulp
+
+
+@pytest.mark.parametrize("stencil", [27, 7])
+@pytest.mark.parametrize("dims", [(33, 17, 9), (6, 1, 4), (5, 3, 1)])
+def test_bf16_kernels_match_plain(cuda_device, dims, stencil):
+    """K1-K4's bf16 instances against their plain versions (f32 compute,
+    bf16 storage, f32 partials): vectors within 4 bf16 ulps of max|y|,
+    partials within 1e-3, p', x' and r' bit for bit (both round once per
+    operation), repeat launches bit-identical."""
+    nx, ny, nz = dims
+    op = StencilOperator(nx, ny, nz, Stencil(stencil), torch.bfloat16)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=cuda_device).to(torch.bfloat16)
+
+    u, p, ap = rnd(nz, ny, nx), rnd(nz, ny, nx), rnd(nz, ny, nx)
+    h2, h4 = rnd(2, ny, nx), rnd(4, ny, nx)
+    beta = torch.tensor([0.37], device=cuda_device)
+    before = (st.spmv_stencil.launches_bf16, st.update_p_apply.launches_bf16, fc.update_x_r.launches_bf16)
+    for halo in (None, h2):
+        y = st.spmv_stencil(op, u, halo)
+        assert _ulps_of_max(y, st.spmv_stencil_plain(op, u, halo)) <= 4
+        assert torch.equal(y, st.spmv_stencil(op, u, halo))
+    y, parts = st.spmv_stencil_pap(op, u, h2)
+    y0, parts0 = st.spmv_stencil_pap_plain(op, u, h2)
+    assert parts.dtype == torch.float32 and _ulps_of_max(y, y0) <= 4
+    torch.testing.assert_close(parts.sum(), parts0.sum(), rtol=1e-3, atol=1e-3)
+    for halo in (None, h4):
+        pp, app, parts = st.update_p_apply(op, u, p, beta, halo)
+        pp0, app0, parts0 = st.update_p_apply_plain(op, u, p, beta, halo)
+        assert torch.equal(pp, pp0) and _ulps_of_max(app, app0) <= 4
+        torch.testing.assert_close(parts.sum(), parts0.sum(), rtol=1e-3, atol=1e-3)
+    x1, r1, x2, r2 = u.clone(), p.clone(), u.clone(), p.clone()
+    _, _, parts = fc.update_x_r(x1, r1, ap, u, beta)
+    _, _, parts0 = fc.update_x_r_plain(x2, r2, ap, u, beta)
+    assert torch.equal(x1, x2) and torch.equal(r1, r2)
+    torch.testing.assert_close(parts.sum(), parts0.sum(), rtol=1e-3, atol=0)
+    after = (st.spmv_stencil.launches_bf16, st.update_p_apply.launches_bf16, fc.update_x_r.launches_bf16)
+    assert [a - b for a, b in zip(after, before)] == [4, 2, 1]
+    torch.cuda.synchronize()
+
+
+def _plain_k1_k4():
+    """solver's K1-K4 wrappers swapped for their plain versions (which run
+    on CUDA tensors too): the same recurrence and rounding points, no
+    kernel. A plain partial lands in slot 0 of the kernel's partials."""
+    from unittest import mock
+
+    def into(partials, part):
+        if partials is None:
+            return part
+        partials.zero_()
+        partials[:1].copy_(part)
+        return partials
+
+    def k2(op, u, halo=None, *, out=None, partials=None, active=None):
+        y, part = st.spmv_stencil_pap_plain(op, u, halo, out=out, active=active)
+        return y, into(partials, part)
+
+    def k3(op, r, p, beta, halo=None, *, out_p=None, out_ap=None, partials=None, active=None):
+        pp, ap, part = st.update_p_apply_plain(op, r, p, beta, halo, out_p=out_p, out_ap=out_ap, active=active)
+        return pp, ap, into(partials, part)
+
+    def k4(x, r, p, ap, alpha, *, partials=None, active=None):
+        x, r, part = fc.update_x_r_plain(x, r, p, ap, alpha, active=active)
+        return x, r, into(partials, part)
+
+    return mock.patch.multiple("hpccg_tpu_torch.solver", spmv_stencil=st.spmv_stencil_plain,
+                               spmv_stencil_pap=k2, update_p_apply=k3, update_x_r=k4)
+
+
+@pytest.mark.parametrize("backend", ["pallas", "pallas_fused", "pallas_v1"])
+def test_bf16_kernel_backends_match_plain(cuda_device, backend):
+    """bf16 solves on K1-K4 at 32^3 (40 iterations) against the same
+    recurrence with the plain versions in place of the kernels: the trace
+    within WS_TRACE bf16 (as K5/K6 against theirs); against the bf16 whole
+    solve (which rounds at other places: K6 never stores Ap') within 5e-2
+    above 1e-3 of trace[0], chip_smoke's bound for two bf16 recurrences;
+    pallas_fused launches K3 and K4 once per iteration."""
+    prob = generate_problem(ProblemConfig(32, 32, 32, dtype=torch.bfloat16), cuda_device)
+    with _plain_k1_k4():
+        want = make_cg(prob.A, max_iter=40, tolerance=0.0, backend=backend)(prob.b, prob.x0)
+    ref = make_cg(prob.A, max_iter=40, tolerance=0.0, backend="streamkernel")(prob.b, prob.x0)
+    before = (st.update_p_apply.launches_bf16, fc.update_x_r.launches_bf16)
+    res = make_cg(prob.A, max_iter=40, tolerance=0.0, backend=backend)(prob.b, prob.x0)
+    assert int(res.niters) == int(want.niters) == int(ref.niters) == 39 and res.x.dtype == torch.bfloat16
+    rtol, floor = WS_TRACE[torch.bfloat16]
+    head = want.trace > floor * want.trace[0]
+    torch.testing.assert_close(res.trace[head], want.trace[head], rtol=rtol, atol=0)
+    head = ref.trace > 1e-3 * ref.trace[0]
+    torch.testing.assert_close(res.trace[head], ref.trace[head], rtol=5e-2, atol=0)
+    if backend == "pallas_fused":
+        assert (st.update_p_apply.launches_bf16 - before[0], fc.update_x_r.launches_bf16 - before[1]) == (39, 39)
+
+
+def test_probes_match_plain(cuda_device):
+    """The copy and write probe kernels bit for bit against their plain
+    versions, on lengths with a tail past the last whole float4."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    for n in (1, 7, 4096 * 33 + 3):
+        x = torch.randn((n,), generator=gen, device=cuda_device)
+        before = stream.copy_plus_one.launches
+        assert torch.equal(stream.copy_plus_one(x), stream.copy_plus_one_plain(x))
+        assert stream.copy_plus_one.launches == before + 1
+    seed = torch.randn((512, 128), generator=gen, device=cuda_device)
+    for n in (4, 65536 * 3, 65536 * 3 + 5, 1000003):
+        before = stream.write_tiled.launches
+        assert torch.equal(stream.write_tiled(seed, n), stream.write_tiled_plain(seed, n))
+        assert stream.write_tiled.launches == before + 1
+    with pytest.raises(ValueError, match="16-byte"):
+        stream.copy_plus_one(x[1:])

@@ -211,7 +211,7 @@ def test_make_mesh_and_backend_resolution():
     assert resolve_distributed_backend(cfg32, "auto", "cpu") == "stencil"
     assert resolve_distributed_backend(cfg32, "auto", "cuda") == "pallas"
     assert resolve_distributed_backend(cfg64, "auto", "cuda") == "pallas_dd"
-    assert resolve_distributed_backend(cfg16, "auto", "cuda") == "stencil"
+    assert resolve_distributed_backend(cfg16, "auto", "cuda") == "pallas"  # K2's bf16 instance, as JAX
     with pytest.raises(ValueError):
         resolve_distributed_backend(cfg32, "megakernel", "cpu")
     mesh = _cpu_mesh(2)

@@ -37,6 +37,19 @@ def test_port_modules_never_import_jax():
     assert int(proc.stdout.strip()) >= 30  # every module of the slices was imported
 
 
+def test_bench_and_bandwidth_never_import_jax():
+    """The benchmark entry point and the bandwidth probe, imported alone."""
+    code = (
+        "import sys\n"
+        "import hpccg_tpu_torch.bench, hpccg_tpu_torch.utils.bandwidth, hpccg_tpu_torch.ops.cuda.stream\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'hpccg_tpu.')))\n"
+        "assert 'hpccg_tpu' not in sys.modules and not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=_env(),
+                          cwd=ROOT, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_chip_smoke_fails_without_a_gpu():
     proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], capture_output=True, text=True,
                           env={**_env(), "CUDA_VISIBLE_DEVICES": ""}, cwd=ROOT, timeout=120)

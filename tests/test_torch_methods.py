@@ -274,7 +274,7 @@ def test_explicit_matrices_run_one_reduction_methods(fmt, method):
 def test_method_dispatch_warns_and_refuses():
     """The whole-solve and fused backends run the reference recurrence only:
     a one-reduction method warns and runs pallas, as JAX does; an unknown
-    method raises; bfloat16 on a kernel backend raises."""
+    method raises; bfloat16 on pallas_dd (float64 only) raises."""
     _, prob = _problems((6, 5, 4), "float64")
     ref = make_cg(prob.A, max_iter=20, backend="pallas", method="cg1")(prob.b, prob.x0)
     for backend in ("megakernel", "streamkernel", "pallas_fused"):
@@ -287,4 +287,4 @@ def test_method_dispatch_warns_and_refuses():
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         with pytest.raises(ValueError, match="bfloat16"):
-            make_cg(bf.A, backend="pallas_fused", method="pipecg")
+            make_cg(bf.A, backend="pallas_dd", method="pipecg")

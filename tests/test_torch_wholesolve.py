@@ -186,9 +186,9 @@ def test_bf16_backend_choice():
     assert resolve_backend("auto", "cuda", torch.bfloat16) == "streamkernel"
     assert resolve_backend("auto", "cuda", torch.float32) == "pallas_fused"
     assert resolve_backend("auto", "cpu", torch.bfloat16) == "stencil"
-    for backend in ("pallas", "pallas_fused", "pallas_v1"):
-        with pytest.raises(ValueError, match="megakernel"):
-            make_cg(prob.A, backend=backend)
+    for backend in ("pallas", "pallas_fused", "pallas_v1"):  # K1-K4's bf16 instances (plain here)
+        res = make_cg(prob.A, max_iter=8, backend=backend)(prob.b, prob.x0)
+        assert res.x.dtype == torch.bfloat16 and res.trace.dtype == torch.float32 and int(res.niters) == 7
     for dtype in (torch.bfloat16, torch.float32):
         with pytest.raises(ValueError, match="pallas_dd"):
             make_cg(generate_problem(ProblemConfig(4, 4, 4, dtype=dtype), "cpu").A, backend="pallas_dd")
