@@ -31,8 +31,13 @@ and picks a tier of ``parallel.cg`` by structure, as the JAX package does:
 methods cg and cg1; pipecg runs cg1, ``--rr-every`` is ignored); a DIA band
 that fits a shard -> ``dia-halo`` (K9/K10 per rank); an ELL band that fits
 -> ``ell-halo`` (K11/K12 per rank); anything else -> ``ell-allgather``.
-Each fallback says why on stderr. ``--check`` strips the pad rows and
-undoes RCM first; the report names the tier and the mesh size. On CUDA
+Each fallback says why on stderr. In bfloat16 the tier follows the JAX
+package's: K17 refuses bf16 (collective falls back to dia-halo), and a
+non-DIA matrix runs ``ell-allgather``, since the JAX package's gather-window
+tier needs a gather matrix that its chooser never builds for 2-byte values
+(the port's ``ell-halo`` takes bf16 through the API). ``--check`` strips
+the pad rows and undoes RCM first; the report names the tier and the mesh
+size. On CUDA
 ``--mesh N`` takes one card per rank, and K17 runs every rank on one card,
 so across cards ``collective`` falls back to dia-halo (the API drives K17
 on a one-card mesh: ``parallel.make_collective_dia_cg``).
@@ -128,8 +133,6 @@ def _not_ported(args) -> str | None:
         return "--stream-load"
     if args.dump_matlab:
         return "--dump-matlab"
-    if file_mode and args.dtype == "bfloat16":
-        return "--dtype bfloat16 in file mode"
     if not file_mode and args.backend in FILE_BACKENDS:
         return f"--backend {args.backend} on a generated problem"
     if not args.mesh.isdigit():
@@ -280,6 +283,9 @@ def _distributed_file(args, prob, ndev: int, device):
             A, tier = A.to_ell(), "ell-allgather"
     if tier is None:
         ok, reason = pcg.ell_halo_plan(A, L)
+        if ok and A.dtype == torch.bfloat16:
+            ok, reason = False, ("bfloat16: the ELL halo tier stands for the JAX package's gather-window tier, whose "
+                                 "gather matrix its chooser never builds for 2-byte values")
         tier = "ell-halo" if ok else "ell-allgather"
         if not ok:
             note(f"{reason}; using the all-gather ELL path")
@@ -558,6 +564,8 @@ def main(argv=None) -> int:
         spmv_note = f"the plain {type(prob.A).__name__} matvec"
     else:
         spmv_note = "the K9/K10 DIA kernel" if isinstance(prob.A, DiaMatrix) else "the K11/K12 ELL gather kernel"
+        if dtype == torch.bfloat16:
+            spmv_note += " (bf16 instance)"
     ts.add(
         f"(DDOT/WAXPBY/SPARSEMV are slope-timed micro-benchmarks; SPARSEMV is "
         f"{spmv_note}; Total timed backend={backend_used}{fused_note})",

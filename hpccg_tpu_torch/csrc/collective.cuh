@@ -50,6 +50,15 @@
 // produced to the neighbours' landing buffers of phase ph, and apply(kind,
 // ph, emit), which computes A v over the rank's rows with phase ph's
 // landing buffers as the halo and calls emit(i, v[i], (A v)[i]).
+//
+// Storage and compute (storage.cuh): the vectors and the landing buffers
+// are T, the arithmetic, the partials, the allreduce table, the scalars, the
+// trace and the stats S. T = S for float and double; bfloat16 vectors
+// (K15/K16 only) compute in float. A value is rounded to T where it is
+// stored, and the pass that stores it goes on with the stored value (a
+// pushed halo row, r in r.r, p in x += alpha p), so that a plain torch
+// recurrence that stores every vector rounds at the same places; the dots
+// of an apply take the unrounded S result (p.Ap, r.u, w.r), as K5 does.
 
 #pragma once
 
@@ -58,6 +67,7 @@
 #include <stdint.h>
 
 #include "reduce.cuh"
+#include "storage.cuh"
 
 namespace hpccg {
 namespace coll {
@@ -73,15 +83,15 @@ enum { C_HALO = 0, C_BAR = 10, C_RANK = 11, C_TABLE = 12, NCTR = 16 };
 // SITE_HALO + 2 * phase + direction
 enum { SITE_BAR = 1, SITE_RANK = 2, SITE_TABLE = 3, SITE_HALO = 16 };
 
-// The launch parameters every collective kernel takes.
-template <typename T>
+// The launch parameters every collective kernel takes (S: the compute type).
+template <typename S>
 struct Common {
   const long long* ptrs;
-  T* trace;
-  T* stats;
+  S* trace;
+  S* stats;
   int* err;
   int ndev, bpr, max_iter;
-  T tol;
+  S tol;
   unsigned long long wait_ns;
 };
 
@@ -100,19 +110,20 @@ __device__ __forceinline__ void release_add(unsigned* c) {
 __host__ __device__ __forceinline__ int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 // One block's view of its rank and the protocol; NT threads per block, n
-// real elements per rank.
-template <typename T, int NT>
+// real elements per rank; vectors stored in T, computed in S.
+template <typename T, typename S, int NT>
 struct Comm {
-  using Scalar = T;
-  const Common<T> P;
-  T* red;
+  using Store = T;
+  using Scalar = S;
+  const Common<S> P;
+  S* red;
   int rank, lb, tid, ndev, bpr;
   int64_t n;
   unsigned bar_epoch = 0, nred = 0, halo_epoch[5] = {0, 0, 0, 0, 0}, uses[2] = {0, 0};
   unsigned pending = 0;  // the slot count an allreduce_finish waits for
   bool leader;
 
-  __device__ Comm(const Common<T>& p, T* r, int thread, int64_t rows) : P(p), red(r) {
+  __device__ Comm(const Common<S>& p, S* r, int thread, int64_t rows) : P(p), red(r) {
     ndev = P.ndev;
     bpr = P.bpr;
     rank = blockIdx.x / bpr;
@@ -130,8 +141,8 @@ struct Comm {
   // rank's vector of `kind`
   __device__ T* vec(int kind) const { return ptr<T>(kind, rank); }
 
-  __device__ T bsum(T v) {
-    const T t = hpccg::block_sum<T, NT>(v, red, tid);
+  __device__ S bsum(S v) {
+    const S t = hpccg::block_sum<S, NT>(v, red, tid);
     __syncthreads();  // every thread has read red[0] before red is reused
     return t;
   }
@@ -210,9 +221,9 @@ struct Comm {
   // The first half of an allreduce of (a, b) over the ranks in `slot`:
   // this block's partials, and (block 0 of the rank) the rank's row in
   // every peer's table.
-  __device__ bool allreduce_start(T a, T b, int slot) {
-    const T sa = bsum(a), sb = bsum(b);
-    T* parts = ptr<T>(P_PARTS, rank);
+  __device__ bool allreduce_start(S a, S b, int slot) {
+    const S sa = bsum(a), sb = bsum(b);
+    S* parts = ptr<S>(P_PARTS, rank);
     if (tid == 0) {
       parts[2 * lb] = sa;
       parts[2 * lb + 1] = sb;
@@ -223,7 +234,7 @@ struct Comm {
     pending = ++uses[slot] * ndev;
     if (lb != 0) return true;
     if (!wait(ctr(rank) + C_RANK, nred * bpr, SITE_RANK)) return false;
-    T pa = T(0), pb = T(0);
+    S pa = S(0), pb = S(0);
     for (int j = tid; j < bpr; j += NT) {
       pa += __ldcg(parts + 2 * j);
       pb += __ldcg(parts + 2 * j + 1);
@@ -232,7 +243,7 @@ struct Comm {
     pb = bsum(pb);
     if (tid == 0) {
       for (int peer = 0; peer < ndev; ++peer) {
-        T* row = ptr<T>(P_TABLE, peer) + ((int64_t)slot * ndev + rank) * 2;
+        S* row = ptr<S>(P_TABLE, peer) + ((int64_t)slot * ndev + rank) * 2;
         row[0] = pa;
         row[1] = pb;
       }
@@ -244,12 +255,12 @@ struct Comm {
 
   // The second half: wait for the ndev rows of `slot` and sum them in rank
   // order (the same bits in every block).
-  __device__ bool allreduce_finish(int slot, T& a, T& b) {
+  __device__ bool allreduce_finish(int slot, S& a, S& b) {
     if (!wait(ctr(rank) + C_TABLE + slot, pending, SITE_TABLE)) return false;
-    __shared__ T tot[2];
+    __shared__ S tot[2];
     if (tid == 0) {
-      const T* tab = ptr<T>(P_TABLE, rank) + (int64_t)slot * ndev * 2;
-      T sa = __ldcg(tab), sb = __ldcg(tab + 1);
+      const S* tab = ptr<S>(P_TABLE, rank) + (int64_t)slot * ndev * 2;
+      S sa = __ldcg(tab), sb = __ldcg(tab + 1);
       for (int r = 1; r < ndev; ++r) {
         sa += __ldcg(tab + 2 * r);
         sb += __ldcg(tab + 2 * r + 1);
@@ -264,16 +275,16 @@ struct Comm {
     return true;
   }
 
-  __device__ bool allreduce(T a, T b, int slot, T& ga, T& gb) {
+  __device__ bool allreduce(S a, S b, int slot, S& ga, S& gb) {
     return allreduce_start(a, b, slot) && allreduce_finish(slot, ga, gb);
   }
 
-  __device__ void finish(T normr, T rtrans, int k) {
+  __device__ void finish(S normr, S rtrans, int k) {
     if (leader) {
       P.stats[0] = normr;
       P.stats[1] = rtrans;
-      P.stats[2] = T(k - 1);
-      P.stats[3] = T(0);
+      P.stats[2] = S(k - 1);
+      P.stats[3] = S(0);
     }
   }
 };
@@ -282,10 +293,11 @@ struct Comm {
   if (!(cond)) return
 
 // Method cg: the reference recurrence (collective_kernel.py:_cg_whole_solve),
-// exchanging p (phase 0 at the init, 1 in the loop); S holds A p.
+// exchanging p (phase 0 at the init, 1 in the loop); P_S holds A p.
 template <class Rank>
 __device__ void solve_cg(Rank& R) {
-  using T = typename Rank::Scalar;
+  using T = typename Rank::Store;
+  using S = typename Rank::Scalar;
   const T* b = R.template ptr<T>(P_B, R.rank);
   const T* x0 = R.template ptr<T>(P_X0, R.rank);
   T *X = R.vec(P_X), *Rv = R.vec(P_R), *Pv = R.vec(P_P), *AP = R.vec(P_S);
@@ -297,43 +309,45 @@ __device__ void solve_cg(Rank& R) {
     R.push(0, i, v);
   });
   HPCCG_TRY(R.exchange(0));
-  T rr = T(0);
-  R.apply(P_P, 0, [&](int64_t i, T, T y) {
-    const T r = b[i] - y;
+  S rr = S(0);
+  R.apply(P_P, 0, [&](int64_t i, S, S y) {
+    const T r = from_s<T>(to_s(b[i]) - y);
     Rv[i] = r;
-    rr += r * r;
+    const S rs = to_s(r);
+    rr += rs * rs;
   });
-  T rtrans, unused;
-  HPCCG_TRY(R.allreduce(rr, T(0), 0, rtrans, unused));
-  T normr = sqrt(rtrans), rtrans_old = rtrans;
+  S rtrans, unused;
+  HPCCG_TRY(R.allreduce(rr, S(0), 0, rtrans, unused));
+  S normr = sqrt(rtrans), rtrans_old = rtrans;
   if (R.leader) R.P.trace[0] = normr;
   int k = 1;
   while (k < R.P.max_iter && normr > R.P.tol) {
     // allreduce 1: r.r (at k == 1 the init partials again: the same bits)
-    HPCCG_TRY(R.allreduce(rr, T(0), 1, rtrans, unused));
-    const T beta = k == 1 ? T(0) : rtrans / rtrans_old;
+    HPCCG_TRY(R.allreduce(rr, S(0), 1, rtrans, unused));
+    const S beta = k == 1 ? S(0) : rtrans / rtrans_old;
     normr = sqrt(rtrans);
     if (R.leader) R.P.trace[k] = normr;
     R.each([&](int64_t i) {
-      const T p = __ldcg(Rv + i) + beta * __ldcg(Pv + i);
+      const T p = from_s<T>(to_s(__ldcg(Rv + i)) + beta * to_s(__ldcg(Pv + i)));
       Pv[i] = p;
       R.push(1, i, p);
     });
     HPCCG_TRY(R.exchange(1));
-    T pap_blk = T(0), pap;
-    R.apply(P_P, 1, [&](int64_t i, T c, T y) {
-      AP[i] = y;
+    S pap_blk = S(0), pap;
+    R.apply(P_P, 1, [&](int64_t i, S c, S y) {
+      AP[i] = from_s<T>(y);
       pap_blk += c * y;
     });
     // allreduce 2: p.Ap
-    HPCCG_TRY(R.allreduce(pap_blk, T(0), 0, pap, unused));
-    const T alpha = rtrans / pap;
-    rr = T(0);
+    HPCCG_TRY(R.allreduce(pap_blk, S(0), 0, pap, unused));
+    const S alpha = rtrans / pap;
+    rr = S(0);
     R.each([&](int64_t i) {
-      X[i] = __ldcg(X + i) + alpha * __ldcg(Pv + i);
-      const T r = __ldcg(Rv + i) - alpha * __ldcg(AP + i);
+      X[i] = from_s<T>(to_s(__ldcg(X + i)) + alpha * to_s(__ldcg(Pv + i)));
+      const T r = from_s<T>(to_s(__ldcg(Rv + i)) - alpha * to_s(__ldcg(AP + i)));
       Rv[i] = r;
-      rr += r * r;
+      const S rs = to_s(r);
+      rr += rs * rs;
     });
     rtrans_old = rtrans;
     ++k;
@@ -343,35 +357,36 @@ __device__ void solve_cg(Rank& R) {
 
 // Method cg1: Chronopoulos-Gear (collective_kernel.py:_cg1_whole_solve),
 // exchanging x at the init (phase 0) and r in every iteration (phase 1);
-// S = A p by recurrence, U = A r.
+// P_S = A p by recurrence, P_U = A r.
 template <class Rank>
 __device__ void solve_cg1(Rank& R) {
-  using T = typename Rank::Scalar;
+  using T = typename Rank::Store;
+  using S = typename Rank::Scalar;
   const T* b = R.template ptr<T>(P_B, R.rank);
   const T* x0 = R.template ptr<T>(P_X0, R.rank);
-  T *X = R.vec(P_X), *Rv = R.vec(P_R), *Pv = R.vec(P_P), *S = R.vec(P_S), *U = R.vec(P_U);
+  T *X = R.vec(P_X), *Rv = R.vec(P_R), *Pv = R.vec(P_P), *Sv = R.vec(P_S), *U = R.vec(P_U);
   R.each([&](int64_t i) {
     const T v = x0[i];
     X[i] = v;
     R.push(0, i, v);
   });
   HPCCG_TRY(R.exchange(0));
-  R.apply(P_X, 0, [&](int64_t i, T, T y) {
-    const T r = b[i] - y;
+  R.apply(P_X, 0, [&](int64_t i, S, S y) {
+    const T r = from_s<T>(to_s(b[i]) - y);
     Rv[i] = r;
     R.push(1, i, r);
   });
   HPCCG_TRY(R.exchange(1));
-  T g = T(0), d = T(0);
-  R.apply(P_R, 1, [&](int64_t i, T c, T y) {
-    U[i] = y;
+  S g = S(0), d = S(0);
+  R.apply(P_R, 1, [&](int64_t i, S c, S y) {
+    U[i] = from_s<T>(y);
     g += c * c;
     d += c * y;
   });
-  T gamma, delta;
+  S gamma, delta;
   HPCCG_TRY(R.allreduce(g, d, 0, gamma, delta));
   if (R.leader) R.P.trace[0] = sqrt(gamma);
-  T alpha = gamma / delta, gamma_top = gamma, beta = T(0);
+  S alpha = gamma / delta, gamma_top = gamma, beta = S(0);
   int k = 1;
   while (k < R.P.max_iter && sqrt(gamma_top) > R.P.tol) {
     if (R.leader) R.P.trace[k] = sqrt(gamma);
@@ -379,25 +394,25 @@ __device__ void solve_cg1(Rank& R) {
     // the end of body k-1 (p = r + beta p, s = u + beta s) fused with the
     // start of body k (x += alpha p, r -= alpha s)
     R.each([&](int64_t i) {
-      const T rv = __ldcg(Rv + i), uv = __ldcg(U + i);
-      const T p = first ? rv : rv + beta * __ldcg(Pv + i);
-      const T s = first ? uv : uv + beta * __ldcg(S + i);
+      const S rv = to_s(__ldcg(Rv + i)), uv = to_s(__ldcg(U + i));
+      const T p = from_s<T>(first ? rv : rv + beta * to_s(__ldcg(Pv + i)));
+      const T s = from_s<T>(first ? uv : uv + beta * to_s(__ldcg(Sv + i)));
       Pv[i] = p;
-      S[i] = s;
-      X[i] = __ldcg(X + i) + alpha * p;
-      const T r = rv - alpha * s;
+      Sv[i] = s;
+      X[i] = from_s<T>(to_s(__ldcg(X + i)) + alpha * to_s(p));
+      const T r = from_s<T>(rv - alpha * to_s(s));
       Rv[i] = r;
       R.push(1, i, r);
     });
     HPCCG_TRY(R.exchange(1));
-    g = T(0);
-    d = T(0);
-    R.apply(P_R, 1, [&](int64_t i, T c, T y) {
-      U[i] = y;
+    g = S(0);
+    d = S(0);
+    R.apply(P_R, 1, [&](int64_t i, S c, S y) {
+      U[i] = from_s<T>(y);
       g += c * c;
       d += c * y;
     });
-    T g_new, dl;
+    S g_new, dl;
     HPCCG_TRY(R.allreduce(g, d, k & 1, g_new, dl));
     beta = g_new / gamma;
     alpha = g_new / (dl - beta * g_new / alpha);

@@ -103,8 +103,8 @@ struct DiaParams {
 
 // One block's view of its rank of the banded matrix.
 template <typename T>
-struct DiaRank : Comm<T, NT> {
-  using Base = Comm<T, NT>;
+struct DiaRank : Comm<T, T, NT> {
+  using Base = Comm<T, T, NT>;
   int* s_off;
   const int* offsets;
   int ndiag, bw_lo, bw_hi, width;

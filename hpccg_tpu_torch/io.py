@@ -33,8 +33,15 @@ def _tokenize(path: str) -> np.ndarray:
     return np.array(toks, dtype=np.float64)
 
 
-def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
-    return torch.empty((), dtype=dtype).numpy().dtype
+def _values(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """Parsed float64 values as a CPU tensor of ``dtype``, cast once: numpy
+    casts to float32 and float64; bfloat16, which numpy lacks, is cast by
+    torch from the float64 values. torch rounds that cast through float32,
+    as ``ml_dtypes`` does in the JAX package's reader, so both read the same
+    bits."""
+    if dtype == torch.bfloat16:
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float64)).to(dtype)
+    return torch.from_numpy(np.ascontiguousarray(a).astype(torch.empty((), dtype=dtype).numpy().dtype))
 
 
 def read_hpc_row(path: str, *, dtype=torch.float64, to_dia: bool = True,
@@ -44,8 +51,9 @@ def read_hpc_row(path: str, *, dtype=torch.float64, to_dia: bool = True,
     Returns (problem, x_file): the file carries an initial guess x beside b
     and xexact (read_HPC_row.cpp:331-347); problem.x0 is that guess. With
     ``to_dia`` a matrix of at most 128 distinct diagonals (every stencil
-    file) becomes a DiaMatrix; any other stays in padded ELL. float32 and
-    float64 only (numpy has no bfloat16)."""
+    file) becomes a DiaMatrix; any other stays in padded ELL. ``dtype``:
+    float32, float64 or bfloat16 (the values parsed in float64 and cast
+    once, :func:`_values`)."""
     toks = _tokenize(path)
     if toks.size < 2:
         raise ValueError(f"{path}: not an HPC-row file (fewer than 2 tokens)")
@@ -63,9 +71,8 @@ def read_hpc_row(path: str, *, dtype=torch.float64, to_dia: bool = True,
     if tail.size < 3 * nrow:
         raise ValueError(f"{path}: truncated x/b/xexact section")
 
-    ndt = _numpy_dtype(dtype)
     width = int(counts.max()) if nrow else 0
-    vals = np.zeros((nrow, width), ndt)
+    vals = np.zeros((nrow, width), np.float64)
     cols = np.zeros((nrow, width), np.int32)
     valid = np.zeros((nrow, width), bool)
     row_ids = np.repeat(np.arange(nrow), counts)
@@ -73,11 +80,11 @@ def read_hpc_row(path: str, *, dtype=torch.float64, to_dia: bool = True,
     vals[row_ids, slot_ids] = pairs[0::2]
     cols[row_ids, slot_ids] = pairs[1::2].astype(np.int64)
     valid[row_ids, slot_ids] = True
-    A = EllMatrix(vals=torch.from_numpy(vals), cols=torch.from_numpy(cols), valid=torch.from_numpy(valid),
+    A = EllMatrix(vals=_values(vals, dtype), cols=torch.from_numpy(cols), valid=torch.from_numpy(valid),
                   start_row=0, total_nrow=nrow)
     dia = A.to_dia() if to_dia else None
     A = A if dia is None else dia
-    x, b, xexact = (torch.from_numpy(tail[k::3].astype(ndt)).to(device) for k in range(3))
+    x, b, xexact = (_values(tail[k::3], dtype).to(device) for k in range(3))
     prob = Problem(A=A.to(device), b=b, x0=x, xexact=xexact, total_nrow=nrow, total_nnz_model=nnz,
                    total_nnz_exact=nnz)
     return prob, prob.x0
@@ -175,8 +182,13 @@ def pad_problem_rows(prob: Problem, multiple: int) -> Problem:
 
 
 def unpermute(x, perm) -> np.ndarray:
-    """A solve-basis vector (tensor or array) in the file's row order."""
-    x = x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+    """A solve-basis vector (tensor or array) in the file's row order; a
+    bfloat16 tensor comes out as float32 (exact; numpy has no bf16)."""
+    if torch.is_tensor(x):
+        x = x.detach().cpu()
+        x = (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    else:
+        x = np.asarray(x)
     if perm is None:
         return x
     out = np.empty_like(x)

@@ -4,10 +4,11 @@ from __future__ import annotations
 
 import torch
 
-# dtypes of the finalize step and of the sparse kernels K9-K12
+# dtypes of the finalize step
 KERNEL_DTYPES = (torch.float32, torch.float64)
-# dtypes of K1-K4: bf16 is storage, computed in float32 with float32 scalars
-# and partials (config.scalar_dtype)
+# dtypes of K1-K4 and of the sparse kernels K9/K11 (K10/K12 are their
+# float64 instances): bf16 is storage, computed in float32 with float32
+# scalars and partials (config.scalar_dtype)
 STENCIL_DTYPES = (*KERNEL_DTYPES, torch.bfloat16)
 
 

@@ -57,13 +57,16 @@ _SIGNATURES = {
     "hpccg_wholesolve_bf16": [_P] * 8 + [_I] + [_P] * 3 + [_I] * 5 + [_P],
     "hpccg_dia_f32": [_P, _P, _I, _P, _P, _LL, _LL, _LL, _P],
     "hpccg_dia_f64": [_P, _P, _I, _P, _P, _LL, _LL, _LL, _P],
+    "hpccg_dia_bf16": [_P, _P, _I, _P, _P, _LL, _LL, _LL, _P],
     "hpccg_ell_f32": [_P, _P, _I, _P, _P, _LL, _P],
     "hpccg_ell_f64": [_P, _P, _I, _P, _P, _LL, _P],
+    "hpccg_ell_bf16": [_P, _P, _I, _P, _P, _LL, _P],
     "hpccg_collective_resident_blocks": [_I] * 3,
     "hpccg_collective_work_items": [_I] * 3,
     "hpccg_collective_layout": [_I],
     "hpccg_collective_f32": [_P] * 4 + [_I] * 8 + [ctypes.c_double, _LL, _P],
     "hpccg_collective_f64": [_P] * 4 + [_I] * 8 + [ctypes.c_double, _LL, _P],
+    "hpccg_collective_bf16": [_P] * 4 + [_I] * 8 + [ctypes.c_double, _LL, _P],
     "hpccg_collective_dia_resident_blocks": [_I, _I],
     "hpccg_collective_dia_block_rows": [],
     "hpccg_collective_dia_f32": [_P] * 5 + [_I, _I, _LL] + [_I] * 5 + [ctypes.c_double, _LL, _P],

@@ -25,22 +25,36 @@ backend ``stencil``: the halo'd plain matvec, the ranks' partials summed in
 rank order; K17's runs it on the plain dia-halo matvec (``DiaRows.matvec``
 over ``parallel.halo.BandStrips``). A wrapper runs it only when the shards
 lie on the CPU; for CUDA shards it launches the kernel or raises, and
-counts its launches in ``<wrapper>.launches``. Every rank of a launch must
-share one card: a mesh across cards raises NotImplementedError (the
-multi-card launch, with peer pointer tables, is queued in ROADMAP). float32 and float64 only: bfloat16
-raises ValueError (the JAX kernels' allreduce rows are in the vector dtype,
-and the JAX package makes no bfloat16 claim for them).
+counts its launches in ``<wrapper>.launches`` (and those of K15/K16's
+bfloat16 instance in ``<wrapper>.launches_bf16`` too). Every rank of a
+launch must share one card: a mesh across cards raises NotImplementedError
+(the multi-card launch, with peer pointer tables, is queued in ROADMAP).
+
+dtypes: K15/K16 take float32, float64 and bfloat16 (the JAX kernels run
+bf16 too: ``make_distributed_cg(backend="collective")`` has no dtype gate,
+and their vectors, alpha/beta and allreduce rows stay in bf16,
+``collective_kernel.py:562``, ``:842``). The port's bf16 instance stores the
+vectors and the landing planes in bf16 and keeps the partials, the allreduce
+table, the scalars, the trace and the stats in float32
+(``config.scalar_dtype``), as K1-K6 do; its plain version
+(``_solve_plain_bf16``) rounds at the kernel's places. K17 takes float32 and
+float64 only, as the JAX package's K17 is float32 only
+(``hpccg_tpu/parallel/cg.py:1381-1385``): bfloat16 raises ValueError.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
+from hpccg_tpu_torch.config import scalar_dtype
 from hpccg_tpu_torch.operators import DiaRows, StencilOperator, band
 from hpccg_tpu_torch.ops.cuda.build import check_launch, load_library
 from hpccg_tpu_torch.ops.cuda.dia import MAX_DIAGS
 
 METHODS = {"cg": 0, "cg1": 1, "pipecg": 2}
+DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}  # the C entry points' dtype argument
 # rows of the kernels' pointer table; the same order as csrc/collective.cuh
 (P_B, P_X0, P_X, P_R, P_P, P_S, P_U, P_Z, P_Q, P_H, P_PARTS, P_TABLE, P_CTR, P_DATA) = range(14)
 NKIND, NCTR = 14, 16
@@ -60,11 +74,8 @@ def _check(nrow: int, bs, x0s) -> torch.device:
     if not bs or len(bs) != len(x0s):
         raise ValueError(f"b has {len(bs)} shards and x0 {len(x0s)}")
     dtype = bs[0].dtype
-    if dtype == torch.bfloat16:
-        raise ValueError("the collective kernels take float32 or float64; bfloat16 has no instance "
-                         "(the JAX kernels' allreduce rows are in the vector dtype)")
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"the collective kernels take float32 or float64, got {dtype}")
+    if dtype not in DTYPE_CODES:
+        raise TypeError(f"the collective kernels take float32, float64 or bfloat16, got {dtype}")
     for v in bs + x0s:
         if v.dtype != dtype or tuple(v.shape) != (nrow,) or not v.is_contiguous():
             raise ValueError(f"every shard must be a contiguous ({nrow},) {dtype} tensor, got "
@@ -82,7 +93,9 @@ def _check(nrow: int, bs, x0s) -> torch.device:
 
 def solve_plain(op: StencilOperator, bs, x0s, *, method: str, max_iter: int, tolerance: float = 0.0):
     """Plain torch K15/K16: the sharded recurrence of ``method`` with the
-    plain halo'd matvec (``make_distributed_cg(backend="stencil")``)."""
+    plain halo'd matvec (``make_distributed_cg(backend="stencil")``); for
+    bfloat16 shards the kernels' storage/compute split
+    (``_solve_plain_bf16``)."""
     from hpccg_tpu_torch.ops.cuda.fused_cg import cg_finalize_plain
     from hpccg_tpu_torch.parallel.halo import stencil_matvec_halo
     from hpccg_tpu_torch.solver import ONE_REDUCTION, cg_solve
@@ -91,9 +104,101 @@ def solve_plain(op: StencilOperator, bs, x0s, *, method: str, max_iter: int, tol
         return stencil_matvec_halo(op, vs)
 
     bs, x0s = tuple(bs), tuple(x0s)
+    if bs[0].dtype == torch.bfloat16:
+        return _solve_plain_bf16(op, bs, x0s, method=method, max_iter=max_iter, tolerance=tolerance)
     if method == "cg":
         return cg_solve(matvec, bs, x0s, max_iter=max_iter, tolerance=tolerance, finalize=cg_finalize_plain)
     return ONE_REDUCTION[method](matvec, bs, x0s, max_iter=max_iter, tolerance=tolerance)
+
+
+def _solve_plain_bf16(op: StencilOperator, bs, x0s, *, method: str, max_iter: int, tolerance: float):
+    """Plain torch K15/K16 for bfloat16 shards, with the kernels' split
+    (``csrc/collective.cuh``): vectors stored in bf16; A v, the dots, the
+    scalars and the trace in float32. A value is rounded to bf16 where the
+    kernel stores it and used as stored from then on; the dots of an apply
+    (p.Ap, r.u, and w.r at pipecg's init) take its unrounded f32 result.
+    The ranks' dots are summed in rank order; the loop test is read back
+    every iteration. Returns a CGResult with sharded bf16 x."""
+    from hpccg_tpu_torch.parallel.halo import stencil_matvec_halo
+    from hpccg_tpu_torch.solver import CGResult
+
+    f32, bf16, dev = torch.float32, torch.bfloat16, bs[0].device
+    op32 = dataclasses.replace(op, dtype=f32)
+    tol = float(torch.tensor(tolerance, dtype=f32))  # the kernel compares in float32
+    trace = torch.full((max(max_iter, 1),), float("nan"), dtype=f32, device=dev)
+
+    def A(vs):  # A v in float32 from the stored shards, halo planes included
+        return stencil_matvec_halo(op32, tuple(v.float() for v in vs))
+
+    def dot(us, vs):
+        total = torch.zeros((), dtype=f32, device=dev)
+        for u, v in zip(us, vs):
+            total = total + torch.dot(u.float(), v.float()).to(dev)
+        return total
+
+    def store(vs):
+        return tuple(v.to(bf16) for v in vs)
+
+    def lin(xs, a, ys):  # x + a y in float32, stored in bf16
+        return tuple((x.float() + a * y.float()).to(bf16) for x, y in zip(xs, ys))
+
+    def clone(vs):
+        return tuple(v.clone() for v in vs)
+
+    x = clone(x0s)
+    r = tuple((b.float() - y).to(bf16) for b, y in zip(bs, A(x)))
+    k = 1
+    if method == "cg":
+        p, rr = clone(x0s), dot(r, r)
+        rtrans = rtrans_old = rr
+        normr = torch.sqrt(rtrans)
+        trace[0] = normr
+        while k < max_iter and float(normr) > tol:
+            rtrans = rr
+            beta = torch.zeros((), dtype=f32, device=dev) if k == 1 else rtrans / rtrans_old
+            normr = torch.sqrt(rtrans)
+            trace[k] = normr
+            p = lin(r, beta, p)
+            ap = A(p)
+            alpha = rtrans / dot(p, ap)
+            x = lin(x, alpha, p)
+            r = lin(r, -alpha, store(ap))
+            rr = dot(r, r)
+            rtrans_old = rtrans
+            k += 1
+        return CGResult(x=x, niters=torch.tensor(k - 1, dtype=torch.int32, device=dev), normr=normr,
+                        rtrans=rtrans, trace=trace)
+    # cg1 (u = A r) and pipecg (w = A r, q = A w): the one-reduction bodies
+    u = A(r)
+    w = store(u)
+    gamma, delta = dot(r, r), dot(r, u)
+    q = store(A(w)) if method == "pipecg" else None
+    trace[0] = torch.sqrt(gamma)
+    alpha, gamma_top, beta = gamma / delta, gamma, None
+    while k < max_iter and float(torch.sqrt(gamma_top)) > tol:
+        trace[k] = torch.sqrt(gamma)
+        if beta is None:
+            p, s = clone(r), clone(w)
+            z = clone(q) if q is not None else None
+        else:
+            p, s = lin(r, beta, p), lin(w, beta, s)
+            z = lin(q, beta, z) if q is not None else None
+        x = lin(x, alpha, p)
+        r = lin(r, -alpha, s)
+        if method == "pipecg":
+            w = lin(w, -alpha, z)
+            g_new, dl = dot(r, r), dot(w, r)
+            q = store(A(w))
+        else:
+            u = A(r)
+            w = store(u)
+            g_new, dl = dot(r, r), dot(r, u)
+        beta = g_new / gamma
+        alpha = g_new / (dl - beta * g_new / alpha)
+        gamma_top, gamma = gamma, g_new
+        k += 1
+    return CGResult(x=x, niters=torch.tensor(k - 1, dtype=torch.int32, device=dev), normr=torch.sqrt(gamma_top),
+                    rtrans=gamma_top, trace=trace)
 
 
 def work_items(op: StencilOperator) -> int:
@@ -120,8 +225,8 @@ def blocks_per_rank(op: StencilOperator, ndev: int, dtype, method: str) -> int:
     """Blocks of each rank in the launch: the rank's work items, capped by
     the card's resident blocks shared among ``ndev`` ranks. A mesh larger
     than the resident grid raises (nothing falls back)."""
-    resident = load_library().hpccg_collective_resident_blocks(0 if dtype == torch.float32 else 1,
-                                                               op.stencil.value, METHODS[method])
+    resident = load_library().hpccg_collective_resident_blocks(DTYPE_CODES[dtype], op.stencil.value,
+                                                               METHODS[method])
     return min(work_items(op), _resident(resident, ndev, "collective kernel") // ndev)
 
 
@@ -129,18 +234,20 @@ class _Scratch:
     """The device state of one collective launch: the solve vectors, the
     landing buffers, the partials, the allreduce tables, the counters, the
     trace, the stats and the error word, and the pointer table that names
-    them per rank."""
+    them per rank. The vectors and landing buffers are in the shards'
+    dtype, the rest in its scalar dtype (float32 for bfloat16)."""
 
     def __init__(self, bs, x0s, kinds, landing_shape, bpr: int, max_iter: int, data=None):
         dev, dtype, ndev, n = bs[0].device, bs[0].dtype, len(bs), bs[0].numel()
+        sdt = scalar_dtype(dtype)
         self.state = torch.zeros((len(kinds), ndev, n), dtype=dtype, device=dev)
         # the landing buffers a rank's neighbours push into; zero at the global ends
         self.landing = torch.zeros((ndev, *landing_shape), dtype=dtype, device=dev)
-        self.parts = torch.empty((ndev, 2 * bpr), dtype=dtype, device=dev)
-        self.table = torch.zeros((ndev, 2, ndev, 2), dtype=dtype, device=dev)
+        self.parts = torch.empty((ndev, 2 * bpr), dtype=sdt, device=dev)
+        self.table = torch.zeros((ndev, 2, ndev, 2), dtype=sdt, device=dev)
         self.ctr = torch.zeros((ndev, NCTR), dtype=torch.int32, device=dev)
-        self.trace = torch.full((max(max_iter, 1),), float("nan"), dtype=dtype, device=dev)
-        self.stats = torch.zeros((4,), dtype=dtype, device=dev)
+        self.trace = torch.full((max(max_iter, 1),), float("nan"), dtype=sdt, device=dev)
+        self.stats = torch.zeros((4,), dtype=sdt, device=dev)
         self.err = torch.zeros((4,), dtype=torch.int32, device=dev)
         rows = [[0] * ndev for _ in range(NKIND)]
         for r in range(ndev):
@@ -183,7 +290,8 @@ def launch(op: StencilOperator, bs, x0s, *, method: str, max_iter: int, toleranc
     bpr = blocks_per_rank(op, ndev, dtype, method)
     sc = _Scratch(bs, x0s, VECTORS[method], (5, 2, op.ny, op.nx), bpr, max_iter)
     lib = load_library()
-    fn = lib.hpccg_collective_f32 if dtype == torch.float32 else lib.hpccg_collective_f64
+    fn = {torch.float32: lib.hpccg_collective_f32, torch.float64: lib.hpccg_collective_f64,
+          torch.bfloat16: lib.hpccg_collective_bf16}[dtype]
     # the C entry points launch on the current device, which must be the stream's
     with torch.cuda.device(dev):
         code = fn(sc.ptrs.data_ptr(), sc.trace.data_ptr(), sc.stats.data_ptr(), sc.err.data_ptr(), ndev, bpr, op.nx,
@@ -201,6 +309,8 @@ def _solve(wrapper, op, bs, x0s, method, max_iter, tolerance):
         return solve_plain(op, bs, x0s, method=method, max_iter=max_iter, tolerance=tolerance)
     res = launch(op, tuple(bs), tuple(x0s), method=method, max_iter=max_iter, tolerance=tolerance)
     wrapper.launches += 1
+    if bs[0].dtype == torch.bfloat16:
+        wrapper.launches_bf16 += 1
     return res
 
 
@@ -212,7 +322,7 @@ def cg_collective(op: StencilOperator, bs, x0s, *, method: str = "cg1", max_iter
     return _solve(cg_collective, op, bs, x0s, method, max_iter, tolerance)
 
 
-cg_collective.launches = 0
+cg_collective.launches = cg_collective.launches_bf16 = 0
 
 
 def cg_collective_pipelined(op: StencilOperator, bs, x0s, *, max_iter: int, tolerance: float = 0.0):
@@ -221,7 +331,7 @@ def cg_collective_pipelined(op: StencilOperator, bs, x0s, *, max_iter: int, tole
     return _solve(cg_collective_pipelined, op, bs, x0s, "pipecg", max_iter, tolerance)
 
 
-cg_collective_pipelined.launches = 0
+cg_collective_pipelined.launches = cg_collective_pipelined.launches_bf16 = 0
 
 
 # ------------------------------------------------ K17: the banded matrix
@@ -239,6 +349,9 @@ def _check_dia(blocks, bs, x0s) -> torch.device:
     L = first.local_nrow
     if any(blk.offsets != first.offsets or blk.local_nrow != L for blk in blocks):
         raise ValueError("every rank's row block must have the same rows and offsets")
+    if tuple(bs)[0].dtype == torch.bfloat16:
+        raise ValueError("K17 takes float32 or float64; bfloat16 has no instance (the JAX package's collective "
+                         "DIA kernel is float32 only, hpccg_tpu/parallel/cg.py:1381-1385)")
     dev = _check(L, bs, x0s)
     for blk in blocks:
         if blk.dtype != bs[0].dtype or blk.device != dev or not blk.data.is_contiguous():

@@ -29,7 +29,11 @@ tries them:
 - ``ell-allgather`` (``make_distributed_ell_cg``): K11/K12 per rank on the
   gathered global x, for every other matrix.
 
-On the CPU every tier runs its kernels' plain versions.
+On the CPU every tier runs its kernels' plain versions. bfloat16 rides
+every tier but ``dia-collective`` (K17 is float32/float64, as the JAX
+package's is float32 only): bf16 strips and vectors, K9/K11's bf16
+instances, and for ``cg`` float32 scalars, dots and trace
+(``config.scalar_dtype``), as the kernel backends on one device.
 """
 
 from __future__ import annotations
@@ -137,9 +141,10 @@ def make_distributed_cg(
     ``pallas_dd`` (K7, float64), ``pallas_v1`` (K1 and torch dots),
     ``pallas_fused`` (K3 with four planes, K4), ``collective`` (the whole
     solve in one launch of K15/K16); ``auto`` as resolve_distributed_backend.
-    bf16 shards (and halo planes) run on every backend but ``pallas_dd`` and
-    ``collective``, with float32 scalars on the kernel backends, as on one
-    device.
+    bf16 shards (and halo planes) run on every backend but ``pallas_dd``,
+    with float32 scalars on the kernel backends, as on one device
+    (``collective``: K15/K16's bf16 instance, its plain version on the
+    CPU).
     Methods ``cg``, ``cg1``, ``pipecg``: the one-reduction methods run their
     matvec on ``stencil``, K1 (``pallas``, ``pallas_v1``; ``pallas_fused``
     warns and runs ``pallas``, as on one device) or K7 (``pallas_dd``), and
@@ -311,10 +316,11 @@ def ell_halo_plan(A, L: int):
 def _explicit_runner(method: str, replace_every: int, **kw):
     """run(matvec, bs, x0s) -> CGResult of ``method`` on sharded vectors:
     the reference recurrence with the finalize kernel (its plain version on
-    the CPU), or a one-reduction method."""
+    the CPU; float32 scalars for bf16 vectors), or a one-reduction
+    method."""
     check_method(method)
     if method == "cg":
-        return lambda mv, bs, x0s: cg_solve(mv, bs, x0s, **kw)
+        return lambda mv, bs, x0s: cg_solve(mv, bs, x0s, scalars=scalar_dtype(bs[0].dtype), **kw)
     run = _method_runner(method, replace_every)
     return lambda mv, bs, x0s: run(mv, bs, x0s, **kw)
 
@@ -469,7 +475,8 @@ def collective_dia_supported(A, mesh: Mesh, method: str = "cg1"):
     VMEM fit are TPU limits and are not carried over."""
     first, ndev = _first(A), mesh.size
     if first.dtype not in (torch.float32, torch.float64):
-        return False, f"the collective DIA kernel takes float32 or float64, not {first.dtype}"
+        return False, (f"the collective DIA kernel takes float32 or float64, not {first.dtype} — use "
+                       "make_distributed_dia_cg")
     n = _global_rows(A)
     if n % ndev:
         return False, (f"{n} rows do not divide {ndev} ranks; pad with hpccg_tpu_torch.io.pad_problem_rows(prob, "

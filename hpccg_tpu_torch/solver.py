@@ -78,9 +78,12 @@ K11/K12 for ELL) and the CUDA finalize step; the dots and axpys stay torch,
 as they stay XLA in JAX. ``auto``, ``ell`` and ``dia`` all run the matrix's
 own kernel (``ell`` on a DIA matrix runs DIA: JAX's native dispatch);
 ``stencil`` runs the plain versions with ``cg_finalize_plain``, the plain
-baseline on the card; the stencil-only names warn and run ``auto``. K9/K11
-have no bf16 instance yet: bfloat16 runs the plain path on the CPU, and on
-CUDA only on ``stencil``.
+baseline on the card; the stencil-only names warn and run ``auto``.
+bfloat16 matrices on CUDA run K9/K11's bf16 instances with float32 scalars,
+dots and trace for ``cg`` (``config.scalar_dtype``; cg1 and pipecg keep
+bf16 scalars, as everywhere); on ``stencil`` and on the CPU they run the
+all-bf16 plain recurrence, the JAX package's (its bf16 file mode is XLA's
+DIA/ELL matvec in bf16).
 """
 
 from __future__ import annotations
@@ -628,17 +631,14 @@ def _make_cg_explicit(A, backend: str, method: str, replace_every: int,
     n = A.local_nrow
     if (A.total_nrow or n) != n or getattr(A, "start_row", 0) != 0:
         raise ValueError("make_cg needs the assembled square matrix, not a row shard")
-    if A.dtype == torch.bfloat16 and backend != "stencil" and A.device.type == "cuda":
-        raise ValueError(f"backend {backend!r} has no bfloat16 kernels for {type(A).__name__} yet; bfloat16 "
-                         "state runs on stencil")
-    plain = backend == "stencil" or A.dtype == torch.bfloat16
+    plain = backend == "stencil" or (A.dtype == torch.bfloat16 and A.device.type != "cuda")
     matvec = A.matvec if plain else explicit_kernel(A)
     if method != "cg":
         solver_fn = ONE_REDUCTION[method]
         return lambda b, x0: solver_fn(matvec, b, x0, replace_every=replace_every, **kw)
     if plain:
         return lambda b, x0: cg_solve(matvec, b, x0, finalize=cg_finalize_plain, **kw)
-    return lambda b, x0: cg_solve(matvec, b, x0, **kw)
+    return lambda b, x0: cg_solve(matvec, b, x0, scalars=scalar_dtype(A.dtype), **kw)
 
 
 def make_cg(

@@ -292,7 +292,8 @@ def test_sparse_wrappers_refuse_bad_input(cuda_device):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_explicit_solve_runs_its_kernel(cuda_device, fmt, dtype):
     """make_cg on an explicit matrix launches its kernel once per matvec and
-    matches the plain (`stencil`) solve; bf16 is refused on the card."""
+    matches the plain (`stencil`) solve; a bf16 matrix on the card runs the
+    kernel's bf16 instance, counted apart."""
     prob = generate_ell(ProblemConfig(16, 12, 10, dtype=dtype), cuda_device)
     A = prob.A if fmt == "ell" else prob.A.to_dia()
     wrapper = cell.spmv_ell if fmt == "ell" else cdia.spmv_dia
@@ -307,9 +308,12 @@ def test_explicit_solve_runs_its_kernel(cuda_device, fmt, dtype):
     rtol, floor = {torch.float64: (1e-10, 1e-11), torch.float32: (1e-4, 1e-5)}[dtype]
     head = ref.trace > floor * ref.trace[0]
     torch.testing.assert_close(res.trace[head], ref.trace[head], rtol=rtol, atol=0)
-    bf16 = generate_ell(ProblemConfig(6, 5, 4, dtype=torch.bfloat16), cuda_device).A
-    with pytest.raises(ValueError, match="bfloat16"):
-        make_cg(bf16 if fmt == "ell" else bf16.to_dia())
+    bf = generate_ell(ProblemConfig(6, 5, 4, dtype=torch.bfloat16), cuda_device)
+    before = (_launches(wrapper), wrapper.launches_bf16)
+    res = make_cg(bf.A if fmt == "ell" else bf.A.to_dia(), max_iter=10, tolerance=0.0)(bf.b, bf.x0)
+    torch.cuda.synchronize()
+    assert (_launches(wrapper), wrapper.launches_bf16 - before[1]) == (before[0], 10)
+    assert res.x.dtype == torch.bfloat16 and res.trace.dtype == torch.float32
 
 
 # ------------------------------------------- collective whole solves, K15/K16
@@ -391,11 +395,14 @@ def test_collective_bounded_wait_raises(cuda_device):
 
 
 def test_collective_refuses_bf16_and_several_cards(cuda_device):
+    """K15/K16 have a bf16 instance now (test_bf16_collective_matches_plain):
+    float16, which has none, raises TypeError; so does a mesh across
+    cards."""
     _, prob = _sharded(cuda_device, 2, (6, 5, 4), torch.float32)
-    op = StencilOperator(6, 5, 4, dtype=torch.bfloat16)
-    bf = tuple(v.to(torch.bfloat16) for v in prob.b)
-    with pytest.raises(ValueError, match="bfloat16"):
-        col.cg_collective(op, bf, bf, max_iter=5)
+    op = StencilOperator(6, 5, 4, dtype=torch.float32)
+    half = tuple(v.to(torch.float16) for v in prob.b)
+    with pytest.raises(TypeError, match="bfloat16"):
+        col.cg_collective(op, half, tuple(v.clone() for v in half), max_iter=5)
     if torch.cuda.device_count() > 1:
         other = (prob.b[0], prob.b[1].to("cuda:1"))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -678,3 +685,163 @@ def test_probes_match_plain(cuda_device):
         assert stream.write_tiled.launches == before + 1
     with pytest.raises(ValueError, match="16-byte"):
         stream.copy_plus_one(x[1:])
+
+
+# ------------------------- bf16 K9/K11 and K15/K16 (vectors bf16, sums f32)
+
+from hpccg_tpu_torch.parallel import cg as pcg  # noqa: E402
+from hpccg_tpu_torch.solver import cg_solve  # noqa: E402
+
+BF16 = torch.bfloat16
+# K16/bf16 against its plain version: its w and z recurrences carry each
+# run's rounding forward, and bf16 pipecg diverges within 10-40 iterations in
+# both packages (chip_smoke.py's PIPE_BF16_HEAD and its readings). It is held
+# whole on solves of PIPE_BF16_HEAD iterations, and a longer solve over its
+# first PIPE_BF16_HEAD trace entries.
+PIPE_BF16_HEAD = 5
+
+
+@pytest.mark.parametrize("case", ["stencil", "stencil_x4", "band", "band_x4", "tiny"])
+def test_bf16_dia_kernel_matches_plain(cuda_device, case):
+    """K9's bf16 instance against its plain version (float32 sums of exact
+    bf16 products, y rounded once): bit for bit, two launches
+    bit-identical, counted in launches_bf16 only; the *_x4 cases have a
+    multiple of 4 rows (four rows per thread), the others not."""
+    if case.startswith("stencil"):
+        dims = (32, 16, 9) if case.endswith("x4") else (33, 17, 9)
+        D = generate_ell(ProblemConfig(*dims, dtype=BF16), cuda_device).A.to_dia()
+    elif case.startswith("band"):
+        D = _random_band(5004 if case.endswith("x4") else 5003, 1500, 3000, BF16, cuda_device)
+    else:
+        D = _random_band(3, 2, 2, BF16, cuda_device)
+    P = cdia.prepare_dia(D)
+    x = torch.randn(D.local_nrow, device=cuda_device).to(BF16)
+    before = (_launches(cdia.spmv_dia), cdia.spmv_dia.launches_bf16)
+    y, again = cdia.spmv_dia(P, x), cdia.spmv_dia(P, x)
+    torch.cuda.synchronize()
+    assert (_launches(cdia.spmv_dia), cdia.spmv_dia.launches_bf16) == (before[0], before[1] + 2)
+    assert y.dtype == BF16 and torch.equal(y, cdia.spmv_dia_plain(P, x)) and torch.equal(y, again)
+
+
+@pytest.mark.parametrize("case", ["stencil", "permuted", "skewed"])
+def test_bf16_ell_kernel_matches_plain(cuda_device, case):
+    """K11's bf16 instance against its plain version: the float32 products
+    summed in slot order, bit for bit (a contracted FMA of an exact product
+    rounds as the plain sum does); two launches bit-identical."""
+    A = generate_ell(ProblemConfig(12, 10, 9), "cpu").A
+    if case == "permuted":
+        A = permute_ell(A, torch.randperm(A.local_nrow, generator=torch.Generator().manual_seed(1)).numpy())
+    elif case == "skewed":  # one row of 240 slots
+        vals, cols, valid = (torch.zeros((A.local_nrow, 240), dtype=t) for t in (A.dtype, torch.int32, torch.bool))
+        vals[:, :27], cols[:, :27], valid[:, :27] = A.vals, A.cols, A.valid
+        vals[5], cols[5], valid[5] = 0.01, torch.arange(240, dtype=torch.int32) * 4, True
+        A = dataclasses.replace(A, vals=vals, cols=cols, valid=valid)
+    S = cell.prepare_ell(dataclasses.replace(A, vals=A.vals.to(BF16)).to(cuda_device))
+    x = torch.randn(A.local_nrow, device=cuda_device).to(BF16)
+    before = cell.spmv_ell.launches_bf16
+    y, again = cell.spmv_ell(S, x), cell.spmv_ell(S, x)
+    torch.cuda.synchronize()
+    assert cell.spmv_ell.launches_bf16 == before + 2
+    assert torch.equal(y, cell.spmv_ell_plain(S, x)) and torch.equal(y, again)
+
+
+def test_bf16_dia_window_matches_plain_bit_for_bit(cuda_device):
+    """K9/bf16's window instance on each rank's bf16 extended vector (the
+    dia-halo tier), bit for bit, counted in launches_bf16_window; the four
+    ranks' rows give the single-device product."""
+    prob = _band_problem(cuda_device, 4096, 300, 20, BF16, 4)
+    blk = prob.A[0]
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    xs = tuple(torch.randn(blk.local_nrow, generator=gen, device=cuda_device).to(BF16) for _ in prob.A)
+    ext = BandStrips(blk.local_nrow, blk.bw_lo, blk.bw_hi, [cuda_device] * 4, BF16).fill(xs)
+    before = cdia.spmv_dia.launches_bf16_window
+    got = []
+    for blk, x in zip(prob.A, ext):
+        P = prepare_dia(blk)
+        got.append(cdia.spmv_dia(P, x))
+        assert torch.equal(got[-1], cdia.spmv_dia_plain(P, x))
+    assert cdia.spmv_dia.launches_bf16_window == before + 4
+    whole = DiaMatrix(data=torch.cat([blk.data for blk in prob.A], dim=1), offsets=prob.A[0].offsets,
+                      total_nrow=4096)
+    assert torch.equal(torch.cat(got), cdia.spmv_dia(cdia.prepare_dia(whole), torch.cat(xs)))
+
+
+def _plain_tier(tier, A, mesh):
+    """The sharded A v of a file tier on the rank blocks of A, each rank's
+    kernel swapped for its plain version."""
+    blocks = pcg.shard_matrix(A, mesh)
+    if tier == "ell-allgather":  # each rank's rows on the global x
+        slots = [cell.prepare_ell(blk) for blk in blocks]
+        return lambda vs: tuple(cell.spmv_ell_plain(S, torch.cat(vs)) for S in slots)
+    halo = pcg.HaloTier(blocks, mesh.devices, tier)
+    plain = cdia.spmv_dia_plain if tier == "dia-halo" else cell.spmv_ell_plain
+    halo.kernels = [(S, plain) for S, _ in halo.kernels]
+    return halo
+
+
+@pytest.mark.parametrize("fmt", ["dia", "ell"])
+def test_bf16_explicit_solve_matches_plain(cuda_device, fmt):
+    """make_cg on a bf16 matrix on the card (K9/K11 bf16, float32 scalars)
+    against the same recurrence on the plain matvec: niters equal, the
+    trace within WS_TRACE bf16 above its floor, x as _x_close holds bf16;
+    so the bf16 file tiers (dia-halo, ell-halo, ell-allgather on four ranks
+    of the card) against the same recurrence on the same shards with the
+    plain matvecs, each launching its kernel once per rank and iteration."""
+    prob = generate_ell(ProblemConfig(32, 32, 32, dtype=BF16), cuda_device)
+    A = prob.A.to_dia() if fmt == "dia" else prob.A
+    kernel, prep, plain = ((cdia.spmv_dia, cdia.prepare_dia, cdia.spmv_dia_plain) if fmt == "dia"
+                           else (cell.spmv_ell, cell.prepare_ell, cell.spmv_ell_plain))
+    P = prep(A)
+    want = cg_solve(lambda v: plain(P, v), prob.b, prob.x0, max_iter=40, scalars=torch.float32)
+    before = kernel.launches_bf16
+    got = make_cg(A, max_iter=40, tolerance=0.0)(prob.b, prob.x0)
+    torch.cuda.synchronize()
+    assert kernel.launches_bf16 - before == 40 and int(got.niters) == int(want.niters) == 39
+    rtol, floor = WS_TRACE[BF16]
+    head = want.trace > floor * want.trace[0]
+    torch.testing.assert_close(got.trace[head], want.trace[head], rtol=rtol, atol=0)
+    _x_close(got.x, want.x)
+    mesh = make_mesh(4, devices=[cuda_device] * 4)
+    sp = shard_problem(dataclasses.replace(prob, A=A), mesh)
+    tiers = ([(pcg.make_distributed_dia_cg, "dia-halo")] if fmt == "dia"
+             else [(pcg.make_distributed_ell_halo_cg, "ell-halo"), (pcg.make_distributed_ell_cg, "ell-allgather")])
+    for make, tier in tiers:
+        want = cg_solve(_plain_tier(tier, sp.A, mesh), sp.b, sp.x0, max_iter=20, scalars=torch.float32)
+        before = kernel.launches_bf16
+        res = make(mesh, max_iter=20)(sp.A, sp.b, sp.x0)
+        torch.cuda.synchronize()
+        assert kernel.launches_bf16 - before == 4 * 20 and int(res.niters) == int(want.niters) == 19
+        head = want.trace > floor * want.trace[0]
+        torch.testing.assert_close(res.trace[head], want.trace[head], rtol=rtol, atol=0)
+        _x_close(torch.cat(res.x), torch.cat(want.x))
+
+
+@pytest.mark.parametrize("method", ["cg", "cg1", "pipecg"])
+@pytest.mark.parametrize("ndev", [1, 4])
+def test_bf16_collective_matches_plain(cuda_device, ndev, method):
+    """K15/K16's bf16 instance (bf16 vectors and landing planes, float32
+    partials, table, scalars and trace) against its plain version with
+    every rank on one card, 30 iterations: niters equal, the trace within
+    WS_TRACE bf16 above its floor and x as _x_close holds bf16; pipecg so
+    on a solve of PIPE_BF16_HEAD iterations, and over its first
+    PIPE_BF16_HEAD trace entries on the 30. One launch per solve counted in
+    launches_bf16, two solves bit-identical."""
+    _, prob = _sharded(cuda_device, ndev, (33, 17, 9), BF16)
+    op = StencilOperator(33, 17, 9, dtype=BF16)
+    kern = col.cg_collective_pipelined if method == "pipecg" else col.cg_collective
+    kw = {} if method == "pipecg" else {"method": method}
+    rtol, floor = WS_TRACE[BF16]
+    for iters in (PIPE_BF16_HEAD, 30) if method == "pipecg" else (30,):
+        want = col.solve_plain(op, prob.b, prob.x0, method=method, max_iter=iters)
+        before = kern.launches_bf16
+        got, again = (kern(op, prob.b, prob.x0, max_iter=iters, **kw) for _ in range(2))
+        torch.cuda.synchronize()
+        assert kern.launches_bf16 == before + 2 and got.trace.dtype == torch.float32
+        assert int(got.niters) == int(want.niters) == iters - 1
+        whole = method != "pipecg" or iters <= PIPE_BF16_HEAD
+        head = want.trace > floor * want.trace[0]
+        head[PIPE_BF16_HEAD if not whole else iters:] = False
+        torch.testing.assert_close(got.trace[head], want.trace[head], rtol=rtol, atol=0)
+        if whole:
+            _x_close(torch.cat(got.x), torch.cat(want.x))
+        assert all(torch.equal(a, b) for a, b in zip(got.x, again.x)) and torch.equal(got.trace, again.trace)
