@@ -34,7 +34,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    1e-3, p', x', r' bit for bit, repeats bit-identical;
    phase_bf16_kernels); then the copy and write probe kernels against
    theirs and against the library calls, bit for bit, at 1 GiB per array
-   (phase_probes);
+   (phase_probes); then K3 and K4 (and K1, K2, K7 on the same grids) against
+   theirs in float32, float64 and bfloat16, 27- and 7-point, with and
+   without halo planes, on grids at the edges of the stencil kernels' tile
+   (nx below a thread's 16 bytes, nx = 100, one below and one above the
+   tile's width, ny not a multiple of its height, nz below and one above
+   the z chunk) and on views at odd element offsets (p', x', r' bit for bit,
+   repeats bit-identical), and K3/K4 float32 at 256^3 (phase_tile_edges);
 4. main paths, each with every count set to 0 just before it and
    read just after: (a) slice 1, make_cg on the generated 27-point float32
    problem at 100^3 (max_iter 150) on auto (= pallas_fused), pallas and
@@ -68,7 +74,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    K2 with bf16 halo planes) on 4 ranks of 64^3 against the single-device
    pallas solve, and ``hpccg_tpu_torch.bench --preset strong256 --dtype
    bfloat16 --backend pallas_fused`` in process (K1/K3/K4 bf16 and both
-   probes);
+   probes); (h) slice 8, make_cg at 256^3 float32 on auto (= pallas_fused,
+   49 launches each of K3 and K4) against the stencil trace, twice,
+   bit-identical;
 5. golden: the reference's 10^3 float64 run on pallas_fused, megakernel,
    streamkernel and pallas_dd, from an HPC-row file through the CLI (DIA)
    and through make_cg on the EllMatrix (ELL), as two 10x10x5 ranks on
@@ -89,7 +97,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    256^3 float32 and the whole-solve, pallas and pallas_fused backends at
    256^3 bfloat16 (CUDA
    events, legs of 65 and 1025 iterations), the whole-solve kernels' device
-   busy share at 100^3, and K1 against the plain matvec; at 128^3 float32
+   busy share at 100^3 and pallas_fused's at 256^3 float32 and bfloat16,
+   and K1 against the plain matvec; at 128^3 float32
    and float64 the explicit solves (DIA, ELL, the ELL's plain version, the
    permuted matrix as loaded and after RCM; legs of 17 and 145) and
    K9-K12 per launch with effective GB/s; the collective backends at 1 x
@@ -107,7 +116,8 @@ the bytes it must move over 3.35 TB/s and its operations over the peak
 rate) and, where one PyTorch call computes the same function, that call's
 ms (conv3d for K1 and its bf16 instance, a sparse CSR product for K9-K14,
 torch.add and torch.mul for the probes; null elsewhere). The bf16 rows
-(K1/bf16-K4/bf16) are timed at 256^3, the probes at 1 GiB per array.
+(K1/bf16-K4/bf16) are timed at 256^3, the probes at 1 GiB per array; K3
+and K4 float32 have a second row at 256^3, past the L2.
 
 Each phase prints its seconds. The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -169,6 +179,8 @@ KERNELS = {
     "K9/bf16 DIA spmv, window instance (dia-halo)": ("hpccg_tpu_torch/csrc/dia.cu",
                                                      "hpccg_tpu/ops/pallas/dia_kernel.py:76"),
     "K11/bf16 ELL gather spmv": ("hpccg_tpu_torch/csrc/ell.cu", "hpccg_tpu/ops/pallas/gell_kernel.py:572"),
+    "K3 p-update + spmv + p.Ap, 256^3": ("hpccg_tpu_torch/csrc/stencil.cu", "hpccg_tpu/ops/pallas/fused_cg.py:68"),
+    "K4 x/r update + r.r, 256^3": ("hpccg_tpu_torch/csrc/fused_cg.cu", "hpccg_tpu/ops/pallas/fused_cg.py:114"),
 }
 SLICE1 = list(KERNELS)[:5]  # the kernels of slice 1's main path
 SLICE2 = list(KERNELS)[5:8]
@@ -176,13 +188,15 @@ SLICE3 = list(KERNELS)[8:14]
 SLICE4 = list(KERNELS)[14:16]
 SLICE5 = list(KERNELS)[16:17]
 SLICE6 = list(KERNELS)[17:23]
-SLICE7 = list(KERNELS)[23:]
+SLICE7 = list(KERNELS)[23:28]
+SLICE8 = list(KERNELS)[28:]
 K5, K6, K7 = SLICE2
 K9, K10, K11, K12, K13, K14 = SLICE3
 K15, K16 = SLICE4
 (K17,) = SLICE5
 B1, B2, B3, B4, COPY, WRITE = SLICE6
 C15, C16, D9, D9W, E11 = SLICE7
+BIG3, BIG4 = SLICE8
 WIDE = [K13, K14]  # counted on the wide-scatter solve
 # tolerances, kernel vs plain on the same inputs: the sums run in another
 # order (the xy-sums associate like the plain version, but the compiler may
@@ -678,6 +692,7 @@ def _counters():
     counters += [(col.cg_collective, "launches_bf16"), (col.cg_collective_pipelined, "launches_bf16"),
                  (cdia.spmv_dia, "launches_bf16"), (cdia.spmv_dia, "launches_bf16_window"),
                  (cell.spmv_ell, "launches_bf16")]
+    counters += [(st.update_p_apply, "launches"), (fc.update_x_r, "launches")]
     return dict(zip(KERNELS, counters))
 
 
@@ -1147,8 +1162,9 @@ def phase_main_path() -> dict:
     """Slice 1's main path, slice 2's, slice 3's and its wide-scatter solves,
     slice 4's distributed solves, slice 5's distributed file-mode solves,
     slice 6's bf16 K1-K4 path and slice 7's bf16 collective and file-mode
-    solves, each with its own counts; the launches reported for each kernel are
-    those of its own run."""
+    solves and slice 8's 256^3 float32 pallas_fused solve, each with its own
+    counts; the launches reported for each kernel are those of its own
+    run."""
     first = _drive(_main_path_slice1, SLICE1)
     second = _drive(_main_path_slice2, SLICE2)
     third = _drive(_main_path_slice3, [K9, K10, K11, K12])
@@ -1157,8 +1173,9 @@ def phase_main_path() -> dict:
     fifth = _drive(_main_path_slice5, SLICE5)
     sixth = _drive(_main_path_slice6, SLICE6)
     seventh = _drive(_main_path_slice7, SLICE7)
+    eighth = _drive(_main_path_slice8, SLICE8)
     runs = [(SLICE1, first), (SLICE2, second), ([K9, K10, K11, K12], third), (WIDE, wide), (SLICE4, fourth),
-            (SLICE5, fifth), (SLICE6, sixth), (SLICE7, seventh)]
+            (SLICE5, fifth), (SLICE6, sixth), (SLICE7, seventh), (SLICE8, eighth)]
     return {n: counts[n] for names, counts in runs for n in names}
 
 
@@ -1320,6 +1337,8 @@ def phase_timing(card: str) -> None:
                 f"{27 * n / t / 1e9:.1f} Gnnz/s (long-leg niters {int(last[-1].niters)}) [{card}]")
             if backend in ("megakernel", "streamkernel") and dims == MAIN_SHAPE:
                 _busy_share(run, 200, card, f"{tag} {backend} one 200-iteration solve", "wholesolve_kernel")
+            if backend == "pallas_fused" and dims == BF16_SHAPE:
+                _busy_share(run, 200, card, f"{tag} {backend} one 200-iteration solve", "stencil_kernel")
         if dtype == torch.float32:
             u = prob.A.grid(prob.b)
             out = torch.empty_like(u)
@@ -2816,6 +2835,186 @@ def phase_timing_bf16(card: str, stats: dict) -> None:
             f"(4 ranks on one card) [{card}]")
 
 
+# ------------------------------------------------------------ slice 8: K3 and K4 redesigned
+
+# the grids at the edges of the stencil kernels' tile (V points a thread, a
+# tile TX = 32 V wide and TY high, at most ZC planes a block)
+EDGES = ["nx<V", "nx=100", "nx=TX-1", "nx=TX+1", "ny%TY", "nz<ZC", "nz=ZC+1"]
+BIG_SHAPE = (256, 256, 256)  # K3/K4 f32's second timing shape: 268 / 403 MB, past the 50 MB L2
+
+
+def _edge_shape(edge, dtype):
+    """(nx, ny, nz) at ``edge`` of the stencil kernels' geometry for dtype;
+    the z edges on grids with enough xy tiles that the kernel keeps ZC
+    (checked)."""
+    from hpccg_tpu_torch.ops.cuda import stencil as st
+
+    geo = st.tile_geometry(64, 64, 64, dtype)
+    tx, ty = geo.tile_x, geo.tile_y
+    shapes = {"nx<V": (max(tx // 32 - 1, 1), ty + 3, 5), "nx=100": (100, ty + 3, 7), "nx=TX-1": (tx - 1, ty + 1, 6),
+              "nx=TX+1": (tx + 1, 2 * ty + 1, 5), "ny%TY": (33, 3 * ty + 5, 9)}
+    if edge in shapes:
+        return shapes[edge]
+    zmax = st.tile_geometry(tx * 8, ty * 128, 4096, dtype).z_chunk
+    nz = zmax - 1 if edge == "nz<ZC" else zmax + 1
+    for k in (16, 32, 64, 128, 256, 512, 1024):
+        if st.tile_geometry(tx + 1, ty * k + 1, nz, dtype).z_chunk == zmax:
+            return tx + 1, ty * k + 1, nz
+    raise AssertionError(f"no grid keeps the z chunk at {zmax}")
+
+
+def _edge_vec(got, want, dtype, what) -> float:
+    return _bf16_vec(got, want, what) if dtype == torch.bfloat16 else _vec_err(got, want, dtype, what)
+
+
+def _edge_dot(a, b, dtype, what) -> None:
+    return _bf16_dot(a, b, what) if dtype == torch.bfloat16 else _dot_err(a, b, dtype, what)
+
+
+def _k3_k4_case(op, r, p, ap, halo4, beta, tag, out=None):
+    """K3 (with and without halo planes) and K4 against their plain versions:
+    p', x', r' bit for bit, Ap' within VEC_RTOL (bf16: 4 ulps of max|Ap'|),
+    partials within DOT_RTOL (bf16 BF16_DOT_RTOL); a second launch of each
+    bit-identical, partials included. ``out`` (p', Ap' and K4's x, r): the
+    buffers to write into (views, for unaligned cases). Returns
+    max|kernel - plain| of K3 (over Ap') and of K4 (over x', r')."""
+    from hpccg_tpu_torch.ops.cuda import fused_cg as fc
+    from hpccg_tpu_torch.ops.cuda import stencil as st
+
+    dtype, err = r.dtype, 0.0
+    bufs = out or (torch.empty_like(r), torch.empty_like(r), p.clone(), r.clone())
+    for halo in (None, halo4):
+        what = f"K3 {tag} halo={halo is not None}"
+        pp, app, parts = st.update_p_apply(op, r, p, beta, halo, out_p=bufs[0], out_ap=bufs[1])
+        pp0, app0, parts0 = st.update_p_apply_plain(op, r, p, beta, halo)
+        _same(pp, pp0, f"{what} p' against plain")
+        err = max(err, _edge_vec(app, app0, dtype, f"{what} Ap'"))
+        _edge_dot(parts.sum(), parts0.sum(), dtype, f"{what} p'.Ap'")
+        first = [t.clone() for t in (pp, app, parts)]
+        again = st.update_p_apply(op, r, p, beta, halo, out_p=bufs[0], out_ap=bufs[1])
+        for a, b in zip(first, again):
+            _same(a, b, f"{what} repeat")
+    x1, r1 = bufs[2], bufs[3]
+    x1.copy_(p)
+    r1.copy_(r)
+    x2, r2 = p.clone(), r.clone()
+    _, _, parts = fc.update_x_r(x1, r1, ap, r, beta)
+    _, _, parts0 = fc.update_x_r_plain(x2, r2, ap, r, beta)
+    _same(x1, x2, f"K4 x' {tag}")
+    _same(r1, r2, f"K4 r' {tag}")
+    _edge_dot(parts.sum(), parts0.sum(), dtype, f"K4 r'.r' {tag}")
+    x1.copy_(p)
+    r1.copy_(r)
+    _same(parts, fc.update_x_r(x1, r1, ap, r, beta)[2], f"K4 {tag} repeat partials")
+    return err, max(float((x1.double() - x2.double()).abs().max()), float((r1.double() - r2.double()).abs().max()))
+
+
+def phase_tile_edges(card: str) -> dict:
+    """K3 and K4 (and K1/K2, K7 on the same grids) against their plain
+    versions on grids at the edges of the stencil kernels' tile, in float32,
+    float64 and bfloat16, 27- and 7-point, with and without halo planes, and
+    on views at odd element offsets (narrower accesses; K4 also with its
+    four arrays at different offsets); then K3 and K4 float32 at 256^3:
+    checked, timed (plain, kernel, kernel, plain) and modelled, the kernels
+    line's 256^3 rows."""
+    from hpccg_tpu_torch.config import Stencil
+    from hpccg_tpu_torch.operators import StencilOperator
+    from hpccg_tpu_torch.ops.cuda import fused_cg as fc
+    from hpccg_tpu_torch.ops.cuda import stencil as st
+
+    gen = torch.Generator(device="cuda").manual_seed(808)
+
+    def rnd(shape, dtype, offset=0):
+        n = math.prod(shape)
+        t = torch.randn((n + offset,), generator=gen, device="cuda", dtype=torch.float64).to(dtype)
+        return t[offset:].view(shape)
+
+    for dtype in (torch.float32, torch.float64, torch.bfloat16):
+        sdt = torch.float64 if dtype == torch.float64 else torch.float32
+        beta = torch.tensor([0.37], device="cuda", dtype=sdt)
+        for edge in EDGES:
+            nx, ny, nz = _edge_shape(edge, dtype)
+            for stencil in (Stencil.S27, Stencil.S7):
+                op = StencilOperator(nx, ny, nz, stencil, dtype)
+                grid, tag = (nz, ny, nx), f"{edge} {nx}x{ny}x{nz} {stencil.value}pt {str(dtype)[6:]}"
+                r, p, ap = rnd(grid, dtype), rnd(grid, dtype), rnd(grid, dtype)
+                h2, h4 = rnd((2, ny, nx), dtype), rnd((4, ny, nx), dtype)
+                err3, err4 = _k3_k4_case(op, r, p, ap, h4, beta, tag)
+                for halo in (None, h2):  # K1 and K2 on the same grid
+                    _edge_vec(st.spmv_stencil(op, r, halo), st.spmv_stencil_plain(op, r, halo), dtype, f"K1 {tag}")
+                    y, parts = st.spmv_stencil_pap(op, r, halo)
+                    y0, parts0 = st.spmv_stencil_pap_plain(op, r, halo)
+                    _edge_vec(y, y0, dtype, f"K2 {tag}")
+                    _edge_dot(parts.sum(), parts0.sum(), dtype, f"K2 {tag}")
+                    if dtype == torch.float64:
+                        y, parts = st.spmv_stencil_pap_dd(op, r, halo)
+                        _vec_err(y, y0, dtype, f"K7 {tag}")
+                        _dot_err(parts.sum(), parts0.sum(), dtype, f"K7 {tag}")
+                say(f"[edges] {tag}: ok, p' x' r' bit for bit, repeats bit-identical, max err K3 {err3:.2e} "
+                    f"K4 {err4:.2e}")
+        # views at odd element offsets: inputs, outputs and halo planes
+        nx, ny, nz = 100, 9, 7
+        op, grid = StencilOperator(nx, ny, nz, Stencil.S27, dtype), (nz, ny, nx)
+        r, p, ap = rnd(grid, dtype, 1), rnd(grid, dtype, 3), rnd(grid, dtype, 1)
+        h2, h4 = rnd((2, ny, nx), dtype, 1), rnd((4, ny, nx), dtype, 3)
+        tag = f"views at odd offsets {nx}x{ny}x{nz} {str(dtype)[6:]}"
+        # K4's four arrays at one odd offset (a scalar head, then 16-byte vectors), then at 5/7/1/1 (all scalar)
+        _k3_k4_case(op, r, p, ap, h4, beta, tag, out=(rnd(grid, dtype, 3), rnd(grid, dtype, 1),
+                                                     rnd(grid, dtype, 1), rnd(grid, dtype, 1)))
+        _k3_k4_case(op, r, p, ap, h4, beta, f"{tag}, K4 arrays at offsets 5/7/1/1",
+                    out=(rnd(grid, dtype, 3), rnd(grid, dtype, 1), rnd(grid, dtype, 5), rnd(grid, dtype, 7)))
+        for halo in (None, h2):
+            out = rnd(grid, dtype, 1)
+            _edge_vec(st.spmv_stencil(op, r, halo, out=out), st.spmv_stencil_plain(op, r, halo), dtype, f"K1 {tag}")
+            y, parts = st.spmv_stencil_pap(op, r, halo, out=out)
+            y0, parts0 = st.spmv_stencil_pap_plain(op, r, halo)
+            _edge_vec(y, y0, dtype, f"K2 {tag}")
+            _edge_dot(parts.sum(), parts0.sum(), dtype, f"K2 {tag}")
+        say(f"[edges] {tag}: ok")
+    # K3 and K4 float32 at 256^3, the kernels line's second rows
+    op = StencilOperator(*BIG_SHAPE, Stencil.S27, torch.float32)
+    grid = BIG_SHAPE[::-1]
+    r, p, ap = rnd(grid, torch.float32), rnd(grid, torch.float32), rnd(grid, torch.float32)
+    beta = torch.tensor([0.37], device="cuda")
+    stats = {BIG3: {}, BIG4: {}}
+    errs = _k3_k4_case(op, r, p, ap, rnd((4, 256, 256), torch.float32), beta, "256^3 27pt float32")
+    stats[BIG3]["max_abs_err"], stats[BIG4]["max_abs_err"] = errs
+    out, out2, x, rr = (torch.empty_like(r) for _ in range(4))
+    x.copy_(p)
+    rr.copy_(r)
+    parts3 = torch.empty((st.num_partials(op, "cuda"),), device="cuda")
+    parts4 = torch.empty((fc.num_update_partials(r.numel(), "cuda"),), device="cuda")
+    zero = torch.zeros((1,), device="cuda")  # keeps x and r as they are
+    _time_pair(stats[BIG3], lambda: st.update_p_apply(op, r, p, beta, out_p=out, out_ap=out2, partials=parts3),
+               lambda: st.update_p_apply_plain(op, r, p, beta, out_p=out, out_ap=out2))
+    _time_pair(stats[BIG4], lambda: fc.update_x_r(x, rr, p, ap, zero, partials=parts4),
+               lambda: fc.update_x_r_plain(x, rr, p, ap, zero))
+    n = op.local_nrow
+    _model(stats[BIG3], 4 * n * 4, 2 * op.nnz + 4 * n, 4)
+    _model(stats[BIG4], 6 * n * 4, 6 * n, 4)
+    for name in SLICE8:
+        stat = stats[name]
+        say(f"[edges] {name}: {stat['ms'] * 1e3:.2f} us vs plain {stat['plain_ms'] * 1e3:.2f}, bound "
+            f"{_bound(stat)[0] * 1e3:.2f} ({_gbs(stat['bytes'], stat['ms']):.0f} GB/s) [{card}]")
+    return stats
+
+
+def _main_path_slice8() -> None:
+    """make_cg at 256^3 float32 on auto (= pallas_fused: one K3 and one K4
+    launch an iteration), max_iter 50, against the stencil backend's trace;
+    two runs bit-identical."""
+    big = _solve_all(BIG_SHAPE, 50, ["auto", "stencil"])
+    delta = big["auto"][1]
+    if delta[BIG3] != 49 or delta[BIG4] != 49:
+        raise AssertionError(f"256^3 pallas_fused: expected 49 K3 and 49 K4 launches, got {delta}")
+    worst, tail = _trace_check(big["auto"][0], big["stencil"][0], "slice 8: 256^3 auto")
+    again = _solve_all(BIG_SHAPE, 50, ["pallas_fused"])["pallas_fused"][0]
+    if not torch.equal(again, big["auto"][0]):
+        raise AssertionError("two 256^3 pallas_fused solves gave different traces")
+    say(f"[main] slice 8, 256^3 auto (pallas_fused): trace within {worst:.2e} of stencil's above 1e-7 of "
+        f"trace[0], {tail:.2e} below; a second solve bit-identical")
+
+
 def _phase(name, fn, *args):
     """fn(*args), with its seconds printed."""
     t0 = time.perf_counter()
@@ -2837,6 +3036,7 @@ def main() -> int:
     stats.update(_phase("bandwidth probes vs plain", phase_probes, card))
     stats.update(_phase("bf16 K9/K11 vs plain", phase_bf16_sparse_kernels, card))
     stats.update(_phase("bf16 K15/K16 vs plain", phase_collective_bf16_kernels))
+    stats.update(_phase("K1-K4 at the tile edges, K3/K4 at 256^3", phase_tile_edges, card))
     launches = _phase("main paths", phase_main_path)
     _phase("golden", phase_golden)
     _phase("golden, collective", phase_golden_collective)

@@ -14,12 +14,19 @@
 // iterations to stop launching.
 //
 // What bounds K4 on the card: memory bandwidth. It reads x, r, p, Ap and
-// writes x, r: 6 vectors, 24 MB per iteration at 100^3 f32 (~7 us at
-// 3.35 TB/s); the finalize step is one block and is bound by its launch.
-// What the design does about it: one grid-stride pass with coalesced loads,
-// the r.r reduction folded into the pass (no second read of r), a bounded
-// grid so the partials stay few, and the partial sums deterministic (fixed
-// tree in each block, fixed order in finalize; no float atomics).
+// writes x, r: 6 vectors, 403 MB per iteration at 256^3 f32 (120 us at
+// 3.35 TB/s), 6 flops an element; tensor cores have no role in it. The
+// finalize step is one block and is bound by its launch. Its first form
+// took one element a thread per step, which kept 2 bytes of each array in
+// flight per thread in bf16: K4/bf16 streamed 1.6 TB/s.
+// What the design does about it: one grid-stride pass on 16-byte loads and
+// stores (V = 16 / sizeof(T) elements), two vectors of each array in
+// flight per thread and step; a scalar head up to the first 16-byte
+// boundary and a scalar tail (a view at any element offset: where the four
+// arrays' offsets differ, every element is scalar); the r.r reduction
+// folded into the pass (no second read of r), by shuffles in each warp and
+// the warps in a fixed order; a bounded grid so the partials stay few; the
+// partial sums deterministic (fixed order in finalize; no float atomics).
 //
 // bf16 storage (T = __nv_bfloat16, S = float, storage.cuh): x += alpha p
 // and r -= alpha Ap run in f32 and round to bf16 as they are stored; alpha
@@ -29,7 +36,6 @@
 // whole-solve kernel does.) Both updates are rounded one operation at a
 // time, as the plain torch version computes them, so x' and r' match it bit
 // for bit. The finalize step for bf16 vectors is the f32 instance.
-// Simple first: one element a thread per step, no bf16x2 loads yet.
 //
 // The scalar state lives in two small device arrays (cg_scalars.cuh):
 //   sc[T]:   rtrans (current), rtrans (previous), alpha, beta, normr, tol
@@ -51,24 +57,84 @@ constexpr long long K4_MAX_BLOCKS = 1056;  // 8 blocks on each of 132 SMs
 using namespace hpccg;
 enum { STEP_INIT = 0, STEP_PAP = 1, STEP_RR = 2 };
 
+// One element of the update: x += alpha p, r -= alpha Ap, each rounded
+// one operation at a time (no FMA contraction), as the plain version; adds
+// the stored r's square to acc.
+template <typename T, typename S>
+__device__ __forceinline__ void update_one(T& x, T& r, T p, T ap, S a, S& acc) {
+  x = from_s<T>(add_rn(to_s(x), mul_rn(a, to_s(p))));
+  const S rn = to_s(from_s<T>(add_rn(to_s(r), -mul_rn(a, to_s(ap)))));
+  r = from_s<T>(rn);
+  acc += rn * rn;
+}
+
+// The update on one 16-byte vector of each array (V elements).
+template <typename T, typename S>
+__device__ __forceinline__ void update_vec(uint4& xq, uint4& rq, const uint4& pq, const uint4& aq, S a,
+                                           S& acc) {
+  constexpr int V = 16 / (int)sizeof(T);
+  T* xe = reinterpret_cast<T*>(&xq);
+  T* re = reinterpret_cast<T*>(&rq);
+  const T* pe = reinterpret_cast<const T*>(&pq);
+  const T* ae = reinterpret_cast<const T*>(&aq);
+#pragma unroll
+  for (int j = 0; j < V; ++j) update_one<T, S>(xe[j], re[j], pe[j], ae[j], a, acc);
+}
+
+// Elements [head, head + V * nvec) are 16-byte vectors of every array
+// (head: the elements before the first 16-byte boundary, the same in all
+// four; n when their offsets differ); the head and the tail after the last
+// whole vector are updated one element at a time.
 template <typename T, typename S>
 __global__ void __launch_bounds__(NT)
     update_x_r_kernel(T* __restrict__ x, T* __restrict__ r, const T* __restrict__ p,
                       const T* __restrict__ ap, const S* alpha_ptr, S* __restrict__ partials,
-                      const int* active, int64_t n) {
+                      const int* active, int64_t n, int64_t head) {
+  constexpr int V = 16 / (int)sizeof(T);
   if (active != nullptr && *active == 0) return;
-  __shared__ S red[NT];
+  __shared__ S red[NT / 32];
   const S a = *alpha_ptr;
   S acc = S(0);
+  const int64_t tid = (int64_t)blockIdx.x * NT + threadIdx.x;
   const int64_t stride = (int64_t)gridDim.x * NT;
-  for (int64_t i = (int64_t)blockIdx.x * NT + threadIdx.x; i < n; i += stride) {
-    x[i] = from_s<T>(add_rn(to_s(x[i]), mul_rn(a, to_s(p[i]))));
-    const S rn = to_s(from_s<T>(add_rn(to_s(r[i]), -mul_rn(a, to_s(ap[i])))));
-    r[i] = from_s<T>(rn);
-    acc += rn * rn;
+  const int64_t nvec = (n - head) / V;
+  for (int64_t i = tid; i < head; i += stride) update_one<T, S>(x[i], r[i], p[i], ap[i], a, acc);
+  for (int64_t i = head + nvec * V + tid; i < n; i += stride) update_one<T, S>(x[i], r[i], p[i], ap[i], a, acc);
+  uint4* xv = reinterpret_cast<uint4*>(x + head);
+  uint4* rv = reinterpret_cast<uint4*>(r + head);
+  const uint4* pv = reinterpret_cast<const uint4*>(p + head);
+  const uint4* av = reinterpret_cast<const uint4*>(ap + head);
+  // two vectors of each array in flight per thread and step
+  for (int64_t i = tid; i < nvec; i += 2 * stride) {
+    const int64_t j = i + stride;
+    const bool two = j < nvec;
+    uint4 x0 = xv[i], r0 = rv[i], p0 = pv[i], a0 = av[i];
+    uint4 x1, r1, p1, a1;
+    if (two) {
+      x1 = xv[j];
+      r1 = rv[j];
+      p1 = pv[j];
+      a1 = av[j];
+    }
+    update_vec<T, S>(x0, r0, p0, a0, a, acc);
+    xv[i] = x0;
+    rv[i] = r0;
+    if (two) {
+      update_vec<T, S>(x1, r1, p1, a1, a, acc);
+      xv[j] = x1;
+      rv[j] = r1;
+    }
   }
-  const S total = hpccg::block_sum<S, NT>(acc, red, threadIdx.x);
-  if (threadIdx.x == 0) partials[blockIdx.x] = total;
+  // r.r: shuffles within each warp, then the warps in a fixed order
+  acc = hpccg::warp_sum(acc);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = acc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    S total = red[0];
+#pragma unroll
+    for (int w = 1; w < NT / 32; ++w) total += red[w];
+    partials[blockIdx.x] = total;
+  }
 }
 
 // The top of CG body k: test the exit, then beta, normr and trace[k].
@@ -121,12 +187,24 @@ int update_blocks(long long n) {
   return (int)(b < K4_MAX_BLOCKS ? (b < 1 ? 1 : b) : K4_MAX_BLOCKS);
 }
 
+// The elements before the first 16-byte boundary, where all four arrays
+// share their offset from it; n (no vectors) where they do not.
+template <typename T>
+long long vector_head(const void* x, const void* r, const void* p, const void* ap, long long n) {
+  const uintptr_t m = (uintptr_t)x % 16;
+  if ((uintptr_t)r % 16 != m || (uintptr_t)p % 16 != m || (uintptr_t)ap % 16 != m || m % sizeof(T) != 0) {
+    return n;
+  }
+  const long long h = (long long)((16 - m) % 16 / sizeof(T));
+  return h < n ? h : n;
+}
+
 template <typename T, typename S>
 int launch_update(T* x, T* r, const T* p, const T* ap, const S* alpha, S* partials,
                   const int* active, long long n, void* stream) {
   if (n < 1) return (int)cudaErrorInvalidValue;
   update_x_r_kernel<T, S><<<update_blocks(n), NT, 0, (cudaStream_t)stream>>>(
-      x, r, p, ap, alpha, partials, active, n);
+      x, r, p, ap, alpha, partials, active, n, vector_head<T>(x, r, p, ap, n));
   return (int)cudaGetLastError();
 }
 

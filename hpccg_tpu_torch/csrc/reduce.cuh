@@ -22,6 +22,15 @@ __device__ __forceinline__ T block_sum(T v, T* red, int tid) {
   return red[0];
 }
 
+// Sum of one value per lane over a warp, by xor shuffles: every lane gets
+// the same total (each pairwise add is commutative), the same on every run.
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+  return v;
+}
+
 // A product and a sum each rounded on its own, never contracted into an FMA:
 // the DIA sums (dia.cu, collective_dia.cu) take the roundings of their plain
 // torch version (one sliced multiply-add per diagonal) and match it bit for

@@ -40,7 +40,8 @@ _LL = ctypes.c_longlong
 # (name, argtypes): every pointer and the stream as c_void_p, so ctypes
 # never cuts a 64-bit address to a 32-bit int
 _SIGNATURES = {
-    "hpccg_stencil_num_blocks": [_I, _I, _I],
+    "hpccg_stencil_num_blocks": [_I] * 4,
+    "hpccg_stencil_geometry": [_I] * 4 + [_P],
     "hpccg_stencil_f32": [_P] * 11 + [_I] * 6 + [_P],
     "hpccg_stencil_f64": [_P] * 11 + [_I] * 6 + [_P],
     "hpccg_stencil_bf16": [_P] * 11 + [_I] * 6 + [_P],

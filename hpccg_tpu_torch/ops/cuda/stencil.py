@@ -30,6 +30,9 @@ synchronising) or raises; it counts its launches in ``<wrapper>.launches``.
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+
 import torch
 
 from hpccg_tpu_torch.config import scalar_dtype
@@ -38,15 +41,36 @@ from hpccg_tpu_torch.ops.cuda import STENCIL_DTYPES, check_tensors
 from hpccg_tpu_torch.ops.cuda.build import check_launch, load_library
 
 
-def num_partials(op: StencilOperator, device) -> int:
-    """How many partials K2/K3 write on ``device`` (1 for the plain version)."""
+def num_partials(op: StencilOperator, device, dtype=None) -> int:
+    """How many partials K2/K3 write on ``device`` for vectors of ``dtype``
+    (default ``op.dtype``; 1 for the plain version): the kernel's tile is
+    16 bytes a thread wide, so its grid depends on the element size."""
     if torch.device(device).type != "cuda":
         return 1
-    return load_library().hpccg_stencil_num_blocks(op.nx, op.ny, op.nz)
+    return load_library().hpccg_stencil_num_blocks(op.nx, op.ny, op.nz, (dtype or op.dtype).itemsize)
+
+
+@dataclasses.dataclass(frozen=True)
+class TileGeometry:
+    """The launch geometry of the stencil kernels on a grid: the tile (x
+    points, y rows), the z-planes a block marches over, and the blocks."""
+
+    tile_x: int
+    tile_y: int
+    z_chunk: int
+    blocks: int
+
+
+def tile_geometry(nx: int, ny: int, nz: int, dtype) -> TileGeometry:
+    """K1-K3's geometry for an nx*ny*nz grid of ``dtype`` (needs the card:
+    it asks the built library)."""
+    out = (ctypes.c_int * 4)()
+    load_library().hpccg_stencil_geometry(nx, ny, nz, dtype.itemsize, ctypes.addressof(out))
+    return TileGeometry(*out)
 
 
 def _partials(op, ref, partials):
-    n, sdt = num_partials(op, ref.device), scalar_dtype(ref.dtype)
+    n, sdt = num_partials(op, ref.device, ref.dtype), scalar_dtype(ref.dtype)
     if partials is None:
         return torch.empty((n,), dtype=sdt, device=ref.device)
     check_tensors(ref, STENCIL_DTYPES, partials=(partials, (n,), sdt))

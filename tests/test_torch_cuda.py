@@ -669,6 +669,155 @@ def test_bf16_kernel_backends_match_plain(cuda_device, backend):
         assert (st.update_p_apply.launches_bf16 - before[0], fc.update_x_r.launches_bf16 - before[1]) == (39, 39)
 
 
+# ----------------------------- K1-K4 at the edges of the stencil kernels' tile
+
+EDGES = ["nx<V", "nx=100", "nx=TX-1", "nx=TX+1", "ny%TY", "nz<ZC", "nz=ZC+1"]
+
+
+def _edge_shape(edge, dtype):
+    """(nx, ny, nz) that puts the grid at ``edge`` of the stencil kernels'
+    geometry for ``dtype``: a thread's V points (16 bytes), the tile's width
+    TX = 32 V and height TY, and the largest z chunk ZC (the grids of the
+    last two have enough xy tiles that the kernel keeps ZC; checked)."""
+    geo = st.tile_geometry(64, 64, 64, dtype)
+    tx, ty = geo.tile_x, geo.tile_y
+    v = tx // 32
+    shapes = {"nx<V": (max(v - 1, 1), ty + 3, 5), "nx=100": (100, ty + 3, 7), "nx=TX-1": (tx - 1, ty + 1, 6),
+              "nx=TX+1": (tx + 1, 2 * ty + 1, 5), "ny%TY": (33, 3 * ty + 5, 9)}
+    if edge in shapes:
+        return shapes[edge]
+    zmax = st.tile_geometry(tx * 8, ty * 128, 4096, dtype).z_chunk
+    nz = zmax - 1 if edge == "nz<ZC" else zmax + 1
+    for k in (16, 32, 64, 128, 256, 512, 1024):
+        dims = (tx + 1, ty * k + 1, nz)
+        if st.tile_geometry(*dims, dtype).z_chunk == zmax:
+            return dims
+    raise AssertionError(f"no grid keeps the z chunk at {zmax}")
+
+
+def _close(got, want, dtype):
+    """A product against its plain version: within VEC_RTOL of max|want|
+    (float32/float64; the kernels' sums contract into FMAs where the plain
+    version does not), or 4 bf16 ulps of max|want| (bf16)."""
+    if dtype == torch.bfloat16:
+        assert _ulps_of_max(got, want) <= 4
+    else:
+        _vec(got, want)
+
+
+def _sum_close(got, want, dtype):
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+    else:
+        _dot(got, want)
+
+
+def _k1_k4(op, u, p, ap, h2, h4, beta, dtype):
+    """K1-K4 on these inputs, each held against its plain version (p', x'
+    and r' bit for bit, as both round once per operation); returns every
+    output and partial, for a repeat to compare bit for bit."""
+    outs = []
+    for halo in (None, h2):
+        y = st.spmv_stencil(op, u, halo)
+        _close(y, st.spmv_stencil_plain(op, u, halo), dtype)
+        y2, parts = st.spmv_stencil_pap(op, u, halo)
+        y0, parts0 = st.spmv_stencil_pap_plain(op, u, halo)
+        _close(y2, y0, dtype)
+        _sum_close(parts.sum(), parts0.sum(), dtype)
+        outs += [y, y2, parts]
+    for halo in (None, h4):
+        pp, app, parts = st.update_p_apply(op, u, p, beta, halo)
+        pp0, app0, parts0 = st.update_p_apply_plain(op, u, p, beta, halo)
+        assert torch.equal(pp, pp0)
+        _close(app, app0, dtype)
+        _sum_close(parts.sum(), parts0.sum(), dtype)
+        outs += [pp, app, parts]
+    x1, r1, x2, r2 = u.clone(), p.clone(), u.clone(), p.clone()
+    _, _, parts = fc.update_x_r(x1, r1, ap, u, beta)
+    _, _, parts0 = fc.update_x_r_plain(x2, r2, ap, u, beta)
+    assert torch.equal(x1, x2) and torch.equal(r1, r2)
+    _sum_close(parts.sum(), parts0.sum(), dtype)
+    return outs + [x1, r1, parts]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stencil", [27, 7])
+@pytest.mark.parametrize("edge", EDGES)
+def test_kernels_match_plain_at_tile_edges(cuda_device, edge, stencil, dtype):
+    """K1-K4 (and K7, K2's float64 instance) against their plain versions on
+    grids at the edges of the stencil kernels' tile (_edge_shape), with and
+    without halo planes; a second launch of each gives the same bits,
+    partials included."""
+    nx, ny, nz = _edge_shape(edge, dtype)
+    op = StencilOperator(nx, ny, nz, Stencil(stencil), dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=cuda_device, dtype=torch.float64).to(dtype)
+
+    u, p, ap = rnd(nz, ny, nx), rnd(nz, ny, nx), rnd(nz, ny, nx)
+    h2, h4 = rnd(2, ny, nx), rnd(4, ny, nx)
+    beta = torch.tensor([0.37], device=cuda_device, dtype=torch.float64 if dtype == torch.float64 else torch.float32)
+    first = _k1_k4(op, u, p, ap, h2, h4, beta, dtype)
+    again = _k1_k4(op, u, p, ap, h2, h4, beta, dtype)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    if dtype == torch.float64:
+        y, parts = st.spmv_stencil_pap_dd(op, u, h2)
+        y0, parts0 = st.spmv_stencil_pap_plain(op, u, h2)
+        _vec(y, y0)
+        _dot(parts.sum(), parts0.sum())
+    torch.cuda.synchronize()
+
+
+def _at(n, offset, gen, device, dtype):
+    """A contiguous vector of n elements that starts ``offset`` elements
+    into its storage (a view at that element offset)."""
+    return torch.randn((n + offset,), generator=gen, device=device, dtype=torch.float64).to(dtype)[offset:]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16])
+def test_kernels_on_unaligned_views(cuda_device, dtype):
+    """Each of K1-K4 on vectors that are views at odd element offsets
+    (inputs, outputs and halo planes), so that no 16-byte access lines up:
+    the kernels take narrower accesses and match their plain versions
+    (p', x', r' bit for bit). K4 also with the four arrays at different
+    offsets (no common 16-byte boundary: every element alone)."""
+    nx, ny, nz = 100, 9, 7
+    n = nx * ny * nz
+    op = StencilOperator(nx, ny, nz, Stencil.S27, dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+
+    def grid(offset):
+        return _at(n, offset, gen, cuda_device, dtype).view(nz, ny, nx)
+
+    u, p, ap = grid(1), grid(3), grid(5)
+    h2 = _at(2 * ny * nx, 1, gen, cuda_device, dtype).view(2, ny, nx)
+    h4 = _at(4 * ny * nx, 3, gen, cuda_device, dtype).view(4, ny, nx)
+    beta = torch.tensor([0.37], device=cuda_device, dtype=torch.float64 if dtype == torch.float64 else torch.float32)
+    for halo in (None, h2):
+        out = grid(1)
+        st.spmv_stencil(op, u, halo, out=out)
+        _close(out, st.spmv_stencil_plain(op, u, halo), dtype)
+        y, parts = st.spmv_stencil_pap(op, u, halo, out=grid(7))
+        y0, parts0 = st.spmv_stencil_pap_plain(op, u, halo)
+        _close(y, y0, dtype)
+        _sum_close(parts.sum(), parts0.sum(), dtype)
+    for halo in (None, h4):
+        pp, app, parts = st.update_p_apply(op, u, p, beta, halo, out_p=grid(3), out_ap=grid(1))
+        pp0, app0, parts0 = st.update_p_apply_plain(op, u, p, beta, halo)
+        assert torch.equal(pp, pp0)
+        _close(app, app0, dtype)
+        _sum_close(parts.sum(), parts0.sum(), dtype)
+    for offsets in ((1, 1, 1, 1), (1, 3, 5, 7)):
+        x1, r1, pv, av = (_at(n, o, gen, cuda_device, dtype) for o in offsets)
+        x2, r2 = x1.clone(), r1.clone()
+        _, _, parts = fc.update_x_r(x1, r1, pv, av, beta)
+        _, _, parts0 = fc.update_x_r_plain(x2, r2, pv, av, beta)
+        assert torch.equal(x1, x2) and torch.equal(r1, r2)
+        _sum_close(parts.sum(), parts0.sum(), dtype)
+    torch.cuda.synchronize()
+
+
 def test_probes_match_plain(cuda_device):
     """The copy and write probe kernels bit for bit against their plain
     versions, on lengths with a tail past the last whole float4."""
