@@ -12,10 +12,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 3. kernel vs plain: K1 (with and without halos), K2, K3, K4, the finalize
    step and K7 (float64) against their plain torch versions on the card, at
    33x17x9, 100^3 and 64x48x130, 27- and 7-point, float32 and float64; the
-   whole-solve kernels K5 and K6 against theirs at the same shapes and at
-   200x170x150 (more work items than blocks), in float32, float64 and
-   bfloat16 (max_iter 30): niters, trace, x, and two kernel solves
-   bit-identical; then K1 and K4 past 2^31 points (64-bit offsets); then
+   whole-solve kernels K5 and K6 against theirs at the same shapes, at
+   200x170x150 and 300x301x250 (more work items than blocks), on grids at
+   the edges of their tile and with b and x0 views at odd element offsets,
+   in float32, float64 and bfloat16 (max_iter 30): niters, trace, x, and
+   two kernel solves bit-identical; then K1 and K4 past 2^31 points (64-bit
+   offsets); then
    the DIA kernels K9/K10 and the ELL gather kernels K11/K12 (which compute
    what K13/K14 compute) against theirs, float32 and float64, on the
    stencil at 100^3 and 128^3, a 1000-diagonal band, the permuted 64^3
@@ -41,6 +43,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    tile's width, ny not a multiple of its height, nz below and one above
    the z chunk) and on views at odd element offsets (p', x', r' bit for bit,
    repeats bit-identical), and K3/K4 float32 at 256^3 (phase_tile_edges);
+   then K5 and K6 at 256^3 float32 and bfloat16 against theirs, 50
+   iterations (phase_whole_solve_256);
 4. main paths, each with every count set to 0 just before it and
    read just after: (a) slice 1, make_cg on the generated 27-point float32
    problem at 100^3 (max_iter 150) on auto (= pallas_fused), pallas and
@@ -76,7 +80,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    bfloat16 --backend pallas_fused`` in process (K1/K3/K4 bf16 and both
    probes); (h) slice 8, make_cg at 256^3 float32 on auto (= pallas_fused,
    49 launches each of K3 and K4) against the stencil trace, twice,
-   bit-identical;
+   bit-identical; (i) slice 9, make_cg at 256^3 on megakernel and
+   streamkernel (one launch per solve), float32 against the stencil
+   trace and both dtypes against their plain versions;
 5. golden: the reference's 10^3 float64 run on pallas_fused, megakernel,
    streamkernel and pallas_dd, from an HPC-row file through the CLI (DIA)
    and through make_cg on the EllMatrix (ELL), as two 10x10x5 ranks on
@@ -97,7 +103,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    256^3 float32 and the whole-solve, pallas and pallas_fused backends at
    256^3 bfloat16 (CUDA
    events, legs of 65 and 1025 iterations), the whole-solve kernels' device
-   busy share at 100^3 and pallas_fused's at 256^3 float32 and bfloat16,
+   busy share at 100^3 and 256^3 (float32 and bfloat16) and pallas_fused's
+   at 256^3 float32 and bfloat16,
    and K1 against the plain matvec; at 128^3 float32
    and float64 the explicit solves (DIA, ELL, the ELL's plain version, the
    permuted matrix as loaded and after RCM; legs of 17 and 145) and
@@ -117,7 +124,8 @@ rate) and, where one PyTorch call computes the same function, that call's
 ms (conv3d for K1 and its bf16 instance, a sparse CSR product for K9-K14,
 torch.add and torch.mul for the probes; null elsewhere). The bf16 rows
 (K1/bf16-K4/bf16) are timed at 256^3, the probes at 1 GiB per array; K3
-and K4 float32 have a second row at 256^3, past the L2.
+and K4 float32 have a second row at 256^3, past the L2, and K5 and K6 a
+second and a third, at 256^3 in float32 and bfloat16.
 
 Each phase prints its seconds. The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -181,6 +189,14 @@ KERNELS = {
     "K11/bf16 ELL gather spmv": ("hpccg_tpu_torch/csrc/ell.cu", "hpccg_tpu/ops/pallas/gell_kernel.py:572"),
     "K3 p-update + spmv + p.Ap, 256^3": ("hpccg_tpu_torch/csrc/stencil.cu", "hpccg_tpu/ops/pallas/fused_cg.py:68"),
     "K4 x/r update + r.r, 256^3": ("hpccg_tpu_torch/csrc/fused_cg.cu", "hpccg_tpu/ops/pallas/fused_cg.py:114"),
+    "K5 whole solve (megakernel), 256^3": ("hpccg_tpu_torch/csrc/wholesolve.cu",
+                                           "hpccg_tpu/ops/pallas/megakernel.py:119"),
+    "K6 whole solve, Ap recomputed (streamkernel), 256^3": ("hpccg_tpu_torch/csrc/wholesolve.cu",
+                                                            "hpccg_tpu/ops/pallas/streamkernel.py:92"),
+    "K5/bf16 whole solve (megakernel), 256^3": ("hpccg_tpu_torch/csrc/wholesolve.cu",
+                                                "hpccg_tpu/ops/pallas/megakernel.py:119"),
+    "K6/bf16 whole solve, Ap recomputed (streamkernel), 256^3": ("hpccg_tpu_torch/csrc/wholesolve.cu",
+                                                                 "hpccg_tpu/ops/pallas/streamkernel.py:92"),
 }
 SLICE1 = list(KERNELS)[:5]  # the kernels of slice 1's main path
 SLICE2 = list(KERNELS)[5:8]
@@ -189,7 +205,8 @@ SLICE4 = list(KERNELS)[14:16]
 SLICE5 = list(KERNELS)[16:17]
 SLICE6 = list(KERNELS)[17:23]
 SLICE7 = list(KERNELS)[23:28]
-SLICE8 = list(KERNELS)[28:]
+SLICE8 = list(KERNELS)[28:30]
+SLICE9 = list(KERNELS)[30:]
 K5, K6, K7 = SLICE2
 K9, K10, K11, K12, K13, K14 = SLICE3
 K15, K16 = SLICE4
@@ -197,6 +214,7 @@ K15, K16 = SLICE4
 B1, B2, B3, B4, COPY, WRITE = SLICE6
 C15, C16, D9, D9W, E11 = SLICE7
 BIG3, BIG4 = SLICE8
+BIG5, BIG6, BIG5B, BIG6B = SLICE9
 WIDE = [K13, K14]  # counted on the wide-scatter solve
 # tolerances, kernel vs plain on the same inputs: the sums run in another
 # order (the xy-sums associate like the plain version, but the compiler may
@@ -222,10 +240,11 @@ WS_X_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}  # max|a-b| / max|b|
 # bf16 x: the largest distance in units in the last place, and the share
 # of the elements that differ at all
 WS_X_ULPS, WS_X_SHARE = 4, 1e-3
-# a shape with more work items than the grid has blocks, so that blocks
-# take several items in turns (the shapes above give each block one)
-WS_MULTI_SHAPE = (200, 170, 150)
-WS_SHAPES = [*SHAPES, WS_MULTI_SHAPE]
+# a shape with more work items than the grid has blocks in every dtype, so
+# that blocks take several items in turns (the shapes above, and
+# 200x170x150, give each block one)
+WS_MULTI_SHAPE = (300, 301, 250)
+WS_SHAPES = [*SHAPES, (200, 170, 150), WS_MULTI_SHAPE]
 
 
 def say(msg: str) -> None:
@@ -422,12 +441,68 @@ def _x_check(got, want, what) -> float:
     return err
 
 
+def _ws_case(kern, plain, A, b, x0, dtype, what) -> tuple:
+    """One whole-solve kernel against its plain version, max_iter 30, stopped
+    by a tolerance between the plain trace's entries that straddle
+    WS_TRACE's floor: niters equal, the trace within its rtol, x as
+    _x_check holds it, two kernel solves bit-identical. Returns (niters,
+    tol, trace gap, max|x - x_plain|, bf16: the ulps note)."""
+    rtol, floor = WS_TRACE[dtype]
+    tol = _ws_tolerance(plain(A, b, x0, max_iter=30).trace, floor)
+    want = plain(A, b, x0, max_iter=30, tolerance=tol)
+    got, again = (kern(A, b, x0, max_iter=30, tolerance=tol) for _ in range(2))
+    torch.cuda.synchronize()
+    if int(got.niters) != int(want.niters):
+        raise AssertionError(f"{what}: niters {int(got.niters)} vs plain {int(want.niters)}")
+    n = int(want.niters) + 1
+    rel = float(((got.trace[:n] - want.trace[:n]).abs() / want.trace[:n]).max())
+    if not rel <= rtol or not bool(torch.isnan(got.trace[n:]).all()):
+        raise AssertionError(f"{what}: trace {got.trace[:n].tolist()} vs plain {want.trace[:n].tolist()}")
+    xerr = _x_check(got.x, want.x, what)
+    if not (torch.equal(_bits(got.trace), _bits(again.trace)) and torch.equal(_bits(got.x), _bits(again.x))):
+        raise AssertionError(f"{what}: two kernel solves differ")
+    return n - 1, tol, rel, xerr, _ulp_note(got.x, want.x)
+
+
+WS_EDGES = ["nx<V", "nx=100", "nx=TX-1", "nx=TX+1", "ny%TY", "nz=ZC-1", "nz=ZC+1"]
+
+
+def _ws_edge_shape(edge, dtype, stencil, recompute_ap):
+    """(nx, ny, nz) at ``edge`` of the whole-solve kernel's geometry for
+    dtype: a thread's V points, the tile's width TX = 32 V and height TY,
+    and the z chunk ZC, which the kernel picks per grid: the z edges are
+    grids whose chosen chunk is one above or below their nz (the largest
+    chunk for which the search finds one)."""
+    from hpccg_tpu_torch.config import Stencil
+    from hpccg_tpu_torch.operators import StencilOperator
+    from hpccg_tpu_torch.ops.cuda import wholesolve as ws
+
+    def geo(nx, ny, nz):
+        return ws.geometry(StencilOperator(nx, ny, nz, Stencil(stencil), dtype), dtype, recompute_ap)
+
+    g = geo(64, 64, 64)
+    tx, ty = g.tile_x, g.tile_y
+    shapes = {"nx<V": (max(tx // 32 - 1, 1), ty + 3, 5), "nx=100": (100, ty + 3, 7), "nx=TX-1": (tx - 1, ty + 1, 6),
+              "nx=TX+1": (tx + 1, 2 * ty + 1, 5), "ny%TY": (33, 3 * ty + 5, 9)}
+    if edge in shapes:
+        return shapes[edge]
+    zc = geo(tx * 8, ty * 128, 4096).z_chunk
+    while zc >= 2:
+        nz = zc - 1 if edge == "nz=ZC-1" else zc + 1
+        for ky in range(1, 4096):
+            if geo(tx + 1, ty * ky + 1, nz).z_chunk == zc:
+                return tx + 1, ty * ky + 1, nz
+        zc //= 2
+    raise AssertionError(f"no grid at {edge}")
+
+
 def phase_whole_solve_kernels() -> dict:
-    """K5 and K6 against their plain versions, max_iter 30: niters equal,
-    traces within WS_TRACE above its floor, x as _x_check holds it, two
-    kernel solves bit-identical; at WS_MULTI_SHAPE with more work items
-    than blocks. Returns K5/K6's max_abs_err (x at 100^3 27-point float32)
-    and their us/iter against the plain versions'."""
+    """K5 and K6 against their plain versions (_ws_case), float32, float64
+    and bfloat16, 27- and 7-point: on WS_SHAPES (at WS_MULTI_SHAPE with more
+    work items than blocks), on grids at the edges of their tile, and with b
+    and x0 views at odd element offsets (a random x0 bit for bit with the
+    solve on aligned copies). Returns K5/K6's max_abs_err (x at
+    100^3 27-point float32) and their us/iter against the plain versions'."""
     from hpccg_tpu_torch import ProblemConfig, generate_problem
     from hpccg_tpu_torch.ops.cuda import megakernel as mk
     from hpccg_tpu_torch.ops.cuda import streamkernel as sk
@@ -436,39 +511,55 @@ def phase_whole_solve_kernels() -> dict:
     pairs = {K5: (mk.cg_solve_mega, mk.cg_solve_mega_plain),
              K6: (sk.cg_solve_stream, sk.cg_solve_stream_plain)}
     stats = {name: {"max_abs_err": 0.0} for name in pairs}
+    dtypes = (torch.float32, torch.float64, torch.bfloat16)
     for dims in WS_SHAPES:
         for stencil in (27, 7):
-            for dtype in (torch.float32, torch.float64, torch.bfloat16):
+            for dtype in dtypes:
                 prob = generate_problem(ProblemConfig(*dims, stencil=stencil, dtype=dtype), device="cuda")
                 tag = f"{dims[0]}x{dims[1]}x{dims[2]} {stencil}pt {str(dtype)[6:]}"
-                rtol, floor = WS_TRACE[dtype]
-                items = ws.work_items(prob.A)
                 line = []
                 for name, (kern, plain) in pairs.items():
                     what = f"{name.split()[0]} {tag}"
-                    blocks = ws.num_blocks(prob.A, dtype, name == K6)
-                    if dims == WS_MULTI_SHAPE and not items > blocks:
-                        raise AssertionError(f"{what}: {items} work items for {blocks} blocks")
-                    args = (prob.A, prob.b, prob.x0)
-                    tol = _ws_tolerance(plain(*args, max_iter=30).trace, floor)
-                    want = plain(*args, max_iter=30, tolerance=tol)
-                    got, again = (kern(*args, max_iter=30, tolerance=tol) for _ in range(2))
-                    torch.cuda.synchronize()
-                    if int(got.niters) != int(want.niters):
-                        raise AssertionError(f"{what}: niters {int(got.niters)} vs plain {int(want.niters)}")
-                    n = int(want.niters) + 1
-                    rel = float(((got.trace[:n] - want.trace[:n]).abs() / want.trace[:n]).max())
-                    if not rel <= rtol or not bool(torch.isnan(got.trace[n:]).all()):
-                        raise AssertionError(f"{what}: trace {got.trace[:n].tolist()} vs plain {want.trace[:n].tolist()}")
-                    xerr = _x_check(got.x, want.x, what)
-                    if not (torch.equal(_bits(got.trace), _bits(again.trace)) and torch.equal(_bits(got.x), _bits(again.x))):
-                        raise AssertionError(f"{what}: two kernel solves differ")
+                    g = ws.geometry(prob.A, dtype, name == K6)
+                    if dims == WS_MULTI_SHAPE and not g.items > g.blocks:
+                        raise AssertionError(f"{what}: {g.items} work items for {g.blocks} blocks")
+                    k, tol, rel, xerr, ulp = _ws_case(kern, plain, prob.A, prob.b, prob.x0, dtype, what)
                     if dims == MAIN_SHAPE and stencil == 27 and dtype == torch.float32:
                         stats[name]["max_abs_err"] = xerr
-                    ulp = _ulp_note(got.x, want.x)
-                    line.append(f"{name.split()[0]} {items} items/{blocks} blocks niters {n - 1} (tol {tol:.3g}) "
-                                f"trace {rel:.2e} x {xerr:.2e}{ulp}")
+                    line.append(f"{name.split()[0]} zc {g.z_chunk} {g.items} items/{g.blocks} blocks niters {k} "
+                                f"(tol {tol:.3g}) trace {rel:.2e} x {xerr:.2e}{ulp}")
                 say(f"[whole-solve] {tag}: ok, bit-identical; " + "; ".join(line))
+    for dtype in dtypes:
+        for stencil in (27, 7):
+            for name, (kern, plain) in pairs.items():
+                for edge in WS_EDGES:
+                    dims = _ws_edge_shape(edge, dtype, stencil, name == K6)
+                    prob = generate_problem(ProblemConfig(*dims, stencil=stencil, dtype=dtype), device="cuda")
+                    what = f"{name.split()[0]} {edge} {dims[0]}x{dims[1]}x{dims[2]} {stencil}pt {str(dtype)[6:]}"
+                    g = ws.geometry(prob.A, dtype, name == K6)
+                    k, _, rel, xerr, ulp = _ws_case(kern, plain, prob.A, prob.b, prob.x0, dtype, what)
+                    say(f"[whole-solve edges] {what} (zc {g.z_chunk}, {g.items} items/{g.blocks} blocks): ok, "
+                        f"niters {k} trace {rel:.2e} x {xerr:.2e}{ulp}")
+        # b and x0 as views at element offsets 1 and 3, which init stages on narrower accesses: on a random x0
+        # bit for bit with aligned copies, on the problem's own b and x0 against the plain version
+        prob = generate_problem(ProblemConfig(100, 9, 7, dtype=dtype), device="cuda")
+        n = prob.b.numel()
+        gen = torch.Generator(device="cuda").manual_seed(909)
+
+        def view(t, offset):
+            out = torch.empty((n + offset,), device="cuda", dtype=dtype)[offset:]
+            return out.copy_(t)
+
+        rand = torch.randn((n,), generator=gen, device="cuda", dtype=torch.float64).to(dtype)
+        for name, (kern, plain) in pairs.items():
+            what = f"{name.split()[0]} views at offsets 1/3 100x9x7 {str(dtype)[6:]}"
+            got = kern(prob.A, view(prob.b, 1), view(rand, 3), max_iter=30)
+            want = kern(prob.A, prob.b, rand, max_iter=30)
+            if not (torch.equal(_bits(got.x), _bits(want.x)) and torch.equal(_bits(got.trace), _bits(want.trace))):
+                raise AssertionError(f"{what}: the solve on views differs from the solve on aligned copies")
+            k, _, rel, xerr, ulp = _ws_case(kern, plain, prob.A, view(prob.b, 1), view(prob.x0, 3), dtype, what)
+            say(f"[whole-solve views] {what}: ok, random x0 bit for bit with aligned copies; the problem's b and "
+                f"x0 niters {k} trace {rel:.2e} x {xerr:.2e}{ulp}")
     from hpccg_tpu_torch.utils.timing import time_loop_slope
 
     prob = generate_problem(ProblemConfig(*MAIN_SHAPE, dtype=torch.float32), device="cuda")
@@ -485,6 +576,43 @@ def phase_whole_solve_kernels() -> dict:
         _model(stats[name], 6 * prob.total_nrow * 4, 2 * prob.A.nnz + 10 * prob.total_nrow, 4)
         say(f"[whole-solve] {name}: {stats[name]['ms'] * 1e3:.2f} us/iter vs plain "
             f"{stats[name]['plain_ms'] * 1e3:.2f} at 100^3 float32")
+    return stats
+
+
+def phase_whole_solve_256(card: str) -> dict:
+    """K5 and K6 at 256^3 (past the L2) in float32 and bfloat16, the kernels
+    line's 256^3 rows: us per CG iteration slope-timed (legs of 17 and 145;
+    plain, kernel, kernel, plain) and modelled as the 100^3 rows. Their
+    max_abs_err is the main path's (slice 2 holds these solves against the
+    plain versions: _against_plain)."""
+    from hpccg_tpu_torch import ProblemConfig, generate_problem
+    from hpccg_tpu_torch.ops.cuda import megakernel as mk
+    from hpccg_tpu_torch.ops.cuda import streamkernel as sk
+    from hpccg_tpu_torch.ops.cuda import wholesolve as ws
+    from hpccg_tpu_torch.utils.timing import time_loop_slope
+
+    rows = {torch.float32: ((BIG5, mk.cg_solve_mega, mk.cg_solve_mega_plain),
+                            (BIG6, sk.cg_solve_stream, sk.cg_solve_stream_plain)),
+            torch.bfloat16: ((BIG5B, mk.cg_solve_mega, mk.cg_solve_mega_plain),
+                             (BIG6B, sk.cg_solve_stream, sk.cg_solve_stream_plain))}
+    stats = {}
+    for dtype, kernels in rows.items():
+        prob = generate_problem(ProblemConfig(*BIG_SHAPE, dtype=dtype), device="cuda")
+        args = (prob.A, prob.b, prob.x0)
+        for name, kern, plain in kernels:
+            def per_iter(fn):
+                return time_loop_slope(lambda k: fn(*args, max_iter=k + 1), device="cuda", short=17, long=145,
+                                       reps=3) * 1e3
+
+            stat = stats[name] = {}
+            t_plain1, t_k1, t_k2, t_plain2 = (per_iter(f) for f in (plain, kern, kern, plain))
+            stat["ms"], stat["plain_ms"] = (t_k1 + t_k2) / 2, (t_plain1 + t_plain2) / 2
+            elsize = prob.b.element_size()
+            _model(stat, 6 * prob.total_nrow * elsize, 2 * prob.A.nnz + 10 * prob.total_nrow, elsize)
+            g = ws.geometry(prob.A, dtype, kern is sk.cg_solve_stream)
+            say(f"[whole-solve 256^3] {name}: {stat['ms'] * 1e3:.2f} us/iter vs plain "
+                f"{stat['plain_ms'] * 1e3:.2f}, bound {_bound(stat)[0] * 1e3:.2f} (zc {g.z_chunk}, {g.items} "
+                f"items/{g.blocks} blocks) [{card}]")
     return stats
 
 
@@ -693,6 +821,8 @@ def _counters():
                  (cdia.spmv_dia, "launches_bf16"), (cdia.spmv_dia, "launches_bf16_window"),
                  (cell.spmv_ell, "launches_bf16")]
     counters += [(st.update_p_apply, "launches"), (fc.update_x_r, "launches")]
+    counters += [(mk.cg_solve_mega, "launches_f32"), (sk.cg_solve_stream, "launches_f32"),
+                 (mk.cg_solve_mega, "launches_bf16"), (sk.cg_solve_stream, "launches_bf16")]
     return dict(zip(KERNELS, counters))
 
 
@@ -804,18 +934,27 @@ BF16_RTOL, BF16_FLOOR = 5e-2, 1e-3
 
 
 def _one_whole_launch(runs, what) -> None:
+    """One launch of K5 (megakernel) or K6 (streamkernel) per solve, and no
+    launch of another wrapper (the 256^3 and bf16 rows count on K5's and
+    K6's wrappers too)."""
+    counters = _counters()
     for backend, name in (("megakernel", K5), ("streamkernel", K6)):
         if backend not in runs:
             continue
         delta = runs[backend][1]
-        if delta[name] != 1 or sum(delta.values()) != 1:
+        others = [n for n, d in delta.items() if d and counters[n][0] is not counters[name][0]]
+        if delta[name] != 1 or others:
             raise AssertionError(f"{what} {backend}: expected one whole-solve launch, got {delta}")
+
+
+MAIN_X_ERR = {}  # (dtype, backend) -> max|x - x_plain| of the main path's 256^3 whole solves
 
 
 def _against_plain(runs, dims, max_iter, dtype) -> None:
     """The main path's whole solves against their plain versions on the same
     problem: niters equal, the trace within WS_TRACE above its floor (its
-    order of magnitude below), x as _x_check holds it."""
+    order of magnitude below), x as _x_check holds it (recorded in
+    MAIN_X_ERR)."""
     from hpccg_tpu_torch import ProblemConfig, generate_problem
     from hpccg_tpu_torch.ops.cuda import megakernel as mk
     from hpccg_tpu_torch.ops.cuda import streamkernel as sk
@@ -829,7 +968,7 @@ def _against_plain(runs, dims, max_iter, dtype) -> None:
         if int(res.niters) != int(want.niters):
             raise AssertionError(f"{what}: niters {int(res.niters)} vs {int(want.niters)}")
         worst, tail = _trace_check(res.trace.double().cpu(), want.trace.double().cpu(), what, rtol, floor)
-        xerr = _x_check(res.x, want.x, what)
+        xerr = MAIN_X_ERR[(dtype, backend)] = _x_check(res.x, want.x, what)
         ulp = _ulp_note(res.x, want.x)
         say(f"[main] {what}: niters equal, trace within {worst:.2e} above {floor} of trace[0], "
             f"{tail:.2e} below; max|x - x_plain| {xerr:.2e}{ulp}")
@@ -1163,10 +1302,11 @@ def phase_main_path() -> dict:
     slice 4's distributed solves, slice 5's distributed file-mode solves,
     slice 6's bf16 K1-K4 path and slice 7's bf16 collective and file-mode
     solves and slice 8's 256^3 float32 pallas_fused solve, each with its own
-    counts; the launches reported for each kernel are those of its own
-    run."""
+    counts; the launches reported for each kernel are those of its own run.
+    Slice 9's kernels (K5/K6 at 256^3, float32 and bfloat16) run on slice
+    2's path and are read from its counts."""
     first = _drive(_main_path_slice1, SLICE1)
-    second = _drive(_main_path_slice2, SLICE2)
+    second = _drive(_main_path_slice2, SLICE2 + SLICE9)
     third = _drive(_main_path_slice3, [K9, K10, K11, K12])
     wide = _drive(_main_path_wide_scatter, WIDE)
     fourth = _drive(_main_path_slice4, SLICE4)
@@ -1175,7 +1315,7 @@ def phase_main_path() -> dict:
     seventh = _drive(_main_path_slice7, SLICE7)
     eighth = _drive(_main_path_slice8, SLICE8)
     runs = [(SLICE1, first), (SLICE2, second), ([K9, K10, K11, K12], third), (WIDE, wide), (SLICE4, fourth),
-            (SLICE5, fifth), (SLICE6, sixth), (SLICE7, seventh), (SLICE8, eighth)]
+            (SLICE5, fifth), (SLICE6, sixth), (SLICE7, seventh), (SLICE8, eighth), (SLICE9, second)]
     return {n: counts[n] for names, counts in runs for n in names}
 
 
@@ -1335,7 +1475,7 @@ def phase_timing(card: str) -> None:
             t = time_loop_slope(run, device="cuda", short=65, long=1025)
             say(f"[timing] {tag} {backend}: {t * 1e6:.2f} us/iter, "
                 f"{27 * n / t / 1e9:.1f} Gnnz/s (long-leg niters {int(last[-1].niters)}) [{card}]")
-            if backend in ("megakernel", "streamkernel") and dims == MAIN_SHAPE:
+            if backend in ("megakernel", "streamkernel"):
                 _busy_share(run, 200, card, f"{tag} {backend} one 200-iteration solve", "wholesolve_kernel")
             if backend == "pallas_fused" and dims == BF16_SHAPE:
                 _busy_share(run, 200, card, f"{tag} {backend} one 200-iteration solve", "stencil_kernel")
@@ -3037,7 +3177,11 @@ def main() -> int:
     stats.update(_phase("bf16 K9/K11 vs plain", phase_bf16_sparse_kernels, card))
     stats.update(_phase("bf16 K15/K16 vs plain", phase_collective_bf16_kernels))
     stats.update(_phase("K1-K4 at the tile edges, K3/K4 at 256^3", phase_tile_edges, card))
+    stats.update(_phase("K5/K6 at 256^3", phase_whole_solve_256, card))
     launches = _phase("main paths", phase_main_path)
+    for name, key in ((BIG5, (torch.float32, "megakernel")), (BIG6, (torch.float32, "streamkernel")),
+                      (BIG5B, (torch.bfloat16, "megakernel")), (BIG6B, (torch.bfloat16, "streamkernel"))):
+        stats[name]["max_abs_err"] = MAIN_X_ERR[key]
     _phase("golden", phase_golden)
     _phase("golden, collective", phase_golden_collective)
     _phase("golden, distributed file mode", phase_golden_file_mesh)

@@ -19,7 +19,8 @@
 // finalize step is one block and is bound by its launch. Its first form
 // took one element a thread per step, which kept 2 bytes of each array in
 // flight per thread in bf16: K4/bf16 streamed 1.6 TB/s.
-// What the design does about it: one grid-stride pass on 16-byte loads and
+// What the design does about it (cg_update.cuh, whose element update K5's
+// phase B in wholesolve.cu shares): one grid-stride pass on 16-byte loads and
 // stores (V = 16 / sizeof(T) elements), two vectors of each array in
 // flight per thread and step; a scalar head up to the first 16-byte
 // boundary and a scalar tail (a view at any element offset: where the four
@@ -46,6 +47,7 @@
 // k < max_iter and normr_{k-1} > tol.
 
 #include "cg_scalars.cuh"
+#include "cg_update.cuh"
 #include "reduce.cuh"
 #include "storage.cuh"
 
@@ -57,74 +59,17 @@ constexpr long long K4_MAX_BLOCKS = 1056;  // 8 blocks on each of 132 SMs
 using namespace hpccg;
 enum { STEP_INIT = 0, STEP_PAP = 1, STEP_RR = 2 };
 
-// One element of the update: x += alpha p, r -= alpha Ap, each rounded
-// one operation at a time (no FMA contraction), as the plain version; adds
-// the stored r's square to acc.
-template <typename T, typename S>
-__device__ __forceinline__ void update_one(T& x, T& r, T p, T ap, S a, S& acc) {
-  x = from_s<T>(add_rn(to_s(x), mul_rn(a, to_s(p))));
-  const S rn = to_s(from_s<T>(add_rn(to_s(r), -mul_rn(a, to_s(ap)))));
-  r = from_s<T>(rn);
-  acc += rn * rn;
-}
-
-// The update on one 16-byte vector of each array (V elements).
-template <typename T, typename S>
-__device__ __forceinline__ void update_vec(uint4& xq, uint4& rq, const uint4& pq, const uint4& aq, S a,
-                                           S& acc) {
-  constexpr int V = 16 / (int)sizeof(T);
-  T* xe = reinterpret_cast<T*>(&xq);
-  T* re = reinterpret_cast<T*>(&rq);
-  const T* pe = reinterpret_cast<const T*>(&pq);
-  const T* ae = reinterpret_cast<const T*>(&aq);
-#pragma unroll
-  for (int j = 0; j < V; ++j) update_one<T, S>(xe[j], re[j], pe[j], ae[j], a, acc);
-}
-
-// Elements [head, head + V * nvec) are 16-byte vectors of every array
-// (head: the elements before the first 16-byte boundary, the same in all
-// four; n when their offsets differ); the head and the tail after the last
-// whole vector are updated one element at a time.
+// K4: the update over the flat vectors (cg_update.cuh) and the block's
+// partial of r.r.
 template <typename T, typename S>
 __global__ void __launch_bounds__(NT)
     update_x_r_kernel(T* __restrict__ x, T* __restrict__ r, const T* __restrict__ p,
                       const T* __restrict__ ap, const S* alpha_ptr, S* __restrict__ partials,
                       const int* active, int64_t n, int64_t head) {
-  constexpr int V = 16 / (int)sizeof(T);
   if (active != nullptr && *active == 0) return;
   __shared__ S red[NT / 32];
-  const S a = *alpha_ptr;
-  S acc = S(0);
-  const int64_t tid = (int64_t)blockIdx.x * NT + threadIdx.x;
-  const int64_t stride = (int64_t)gridDim.x * NT;
-  const int64_t nvec = (n - head) / V;
-  for (int64_t i = tid; i < head; i += stride) update_one<T, S>(x[i], r[i], p[i], ap[i], a, acc);
-  for (int64_t i = head + nvec * V + tid; i < n; i += stride) update_one<T, S>(x[i], r[i], p[i], ap[i], a, acc);
-  uint4* xv = reinterpret_cast<uint4*>(x + head);
-  uint4* rv = reinterpret_cast<uint4*>(r + head);
-  const uint4* pv = reinterpret_cast<const uint4*>(p + head);
-  const uint4* av = reinterpret_cast<const uint4*>(ap + head);
-  // two vectors of each array in flight per thread and step
-  for (int64_t i = tid; i < nvec; i += 2 * stride) {
-    const int64_t j = i + stride;
-    const bool two = j < nvec;
-    uint4 x0 = xv[i], r0 = rv[i], p0 = pv[i], a0 = av[i];
-    uint4 x1, r1, p1, a1;
-    if (two) {
-      x1 = xv[j];
-      r1 = rv[j];
-      p1 = pv[j];
-      a1 = av[j];
-    }
-    update_vec<T, S>(x0, r0, p0, a0, a, acc);
-    xv[i] = x0;
-    rv[i] = r0;
-    if (two) {
-      update_vec<T, S>(x1, r1, p1, a1, a, acc);
-      xv[j] = x1;
-      rv[j] = r1;
-    }
-  }
+  S acc = update_x_r_range<T, S>(x, r, p, ap, *alpha_ptr, n, head, (int64_t)blockIdx.x * NT + threadIdx.x,
+                                        (int64_t)gridDim.x * NT);
   // r.r: shuffles within each warp, then the warps in a fixed order
   acc = hpccg::warp_sum(acc);
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = acc;
@@ -185,18 +130,6 @@ __global__ void __launch_bounds__(NT)
 int update_blocks(long long n) {
   const long long b = (n + NT - 1) / NT;
   return (int)(b < K4_MAX_BLOCKS ? (b < 1 ? 1 : b) : K4_MAX_BLOCKS);
-}
-
-// The elements before the first 16-byte boundary, where all four arrays
-// share their offset from it; n (no vectors) where they do not.
-template <typename T>
-long long vector_head(const void* x, const void* r, const void* p, const void* ap, long long n) {
-  const uintptr_t m = (uintptr_t)x % 16;
-  if ((uintptr_t)r % 16 != m || (uintptr_t)p % 16 != m || (uintptr_t)ap % 16 != m || m % sizeof(T) != 0) {
-    return n;
-  }
-  const long long h = (long long)((16 - m) % 16 / sizeof(T));
-  return h < n ? h : n;
 }
 
 template <typename T, typename S>

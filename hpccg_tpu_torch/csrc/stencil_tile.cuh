@@ -1,7 +1,8 @@
-// The z-marching stencil tile step of the whole-solve kernel
-// (wholesolve.cu: K5, K6). The per-iteration stencil kernels (stencil.cu:
-// K1-K3, K7) stage their planes by cp.async on 16-byte accesses instead,
-// with this step's sum association.
+// The z-marching stencil tile step of the collective whole solves
+// (collective.cu: K15, K16). The stencil kernels K1-K3, K7 (stencil.cu) and
+// the single-device whole solves K5, K6 (wholesolve.cu) stage their planes
+// by cp.async on 16-byte accesses instead (stencil_stage.cuh), with this
+// step's sum association.
 //
 // A is the implicit generated-problem operator: A u = 28 u - S(u), where S
 // is the boundary-clipped 27-point (or 7-point) neighbour sum including the

@@ -23,4 +23,13 @@ __device__ __forceinline__ __nv_bfloat16 from_s<__nv_bfloat16, float>(float v) {
   return __float2bfloat16(v);
 }
 
+// Loads through L2 only (ld.global.cg), never from a possibly stale L1
+// line: for data that other blocks wrote earlier in the same launch.
+__device__ __forceinline__ float ldcg(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ double ldcg(const double* p) { return __ldcg(p); }
+__device__ __forceinline__ uint4 ldcg(const uint4* p) { return __ldcg(p); }
+__device__ __forceinline__ __nv_bfloat16 ldcg(const __nv_bfloat16* p) {
+  return __ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(p)));
+}
+
 }  // namespace hpccg

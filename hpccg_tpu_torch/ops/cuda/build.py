@@ -51,11 +51,10 @@ _SIGNATURES = {
     "hpccg_update_x_r_bf16": [_P] * 7 + [_LL, _P],
     "hpccg_finalize_f32": [_P, _I, _P, _P, _P, _I, _P],
     "hpccg_finalize_f64": [_P, _I, _P, _P, _P, _I, _P],
-    "hpccg_wholesolve_num_blocks": [_I] * 6,
-    "hpccg_wholesolve_work_items": [_I] * 3,
-    "hpccg_wholesolve_f32": [_P] * 8 + [_I] + [_P] * 3 + [_I] * 5 + [_P],
-    "hpccg_wholesolve_f64": [_P] * 8 + [_I] + [_P] * 3 + [_I] * 5 + [_P],
-    "hpccg_wholesolve_bf16": [_P] * 8 + [_I] + [_P] * 3 + [_I] * 5 + [_P],
+    "hpccg_wholesolve_geometry": [_I] * 6 + [_P],
+    "hpccg_wholesolve_f32": [_P] * 8 + [_LL, _P, _I] + [_P] * 3 + [_I] * 5 + [_P],
+    "hpccg_wholesolve_f64": [_P] * 8 + [_LL, _P, _I] + [_P] * 3 + [_I] * 5 + [_P],
+    "hpccg_wholesolve_bf16": [_P] * 8 + [_LL, _P, _I] + [_P] * 3 + [_I] * 5 + [_P],
     "hpccg_dia_f32": [_P, _P, _I, _P, _P, _LL, _LL, _LL, _P],
     "hpccg_dia_f64": [_P, _P, _I, _P, _P, _LL, _LL, _LL, _P],
     "hpccg_dia_bf16": [_P, _P, _I, _P, _P, _LL, _LL, _LL, _P],

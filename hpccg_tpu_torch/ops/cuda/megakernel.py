@@ -4,7 +4,8 @@
 
 ``cg_solve_mega`` runs its plain version only for CPU tensors; for CUDA
 tensors it makes one cooperative launch per solve or raises, and counts its
-launches in ``cg_solve_mega.launches``.
+launches in ``cg_solve_mega.launches``; float32 and bf16 launches are counted in
+``cg_solve_mega.launches_f32`` and ``cg_solve_mega.launches_bf16`` as well.
 """
 
 from __future__ import annotations
@@ -25,3 +26,5 @@ def cg_solve_mega(op, b, x0, *, max_iter: int, tolerance: float = 0.0):
 
 
 cg_solve_mega.launches = 0
+cg_solve_mega.launches_f32 = 0
+cg_solve_mega.launches_bf16 = 0

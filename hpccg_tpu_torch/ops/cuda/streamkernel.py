@@ -5,7 +5,8 @@ to p' twice per iteration, once for p'.Ap' and once for the r update.
 
 ``cg_solve_stream`` runs its plain version only for CPU tensors; for CUDA
 tensors it makes one cooperative launch per solve or raises, and counts its
-launches in ``cg_solve_stream.launches``.
+launches in ``cg_solve_stream.launches``; float32 and bf16 launches are counted in
+``cg_solve_stream.launches_f32`` and ``cg_solve_stream.launches_bf16`` as well.
 """
 
 from __future__ import annotations
@@ -26,3 +27,5 @@ def cg_solve_stream(op, b, x0, *, max_iter: int, tolerance: float = 0.0):
 
 
 cg_solve_stream.launches = 0
+cg_solve_stream.launches_f32 = 0
+cg_solve_stream.launches_bf16 = 0

@@ -13,9 +13,24 @@ the kernel's places: p' when it is formed, Ap' when K5 stores it, r and x
 when they are stored; p'.Ap' takes the unrounded A p'. For float32 and
 float64 every rounding is the identity, and the plain version is the
 recurrence of ``solver.cg_solve``.
+
+The dot products have the TPU kernels' form, a partial per z-slab added
+along z in the scalar dtype, with a slab of one plane (``plane_dot``):
+each plane's products, rounded to the scalar dtype, are added in float64
+and the plane's sum is rounded once; the plane sums are added in the
+scalar dtype in z order. The plane sums do not depend on the order of
+their terms, so the kernel computes the same scalars on the card as this
+version does there or on the CPU, which the CPU tests hold against the JAX
+kernels. A stagnating bf16 recurrence turns a last-bit difference of alpha
+into x elements rounded the other way: with float32 sums in other orders
+the plain version parted from itself (an H100 against the CPU) in up to
+14% of x within 30 iterations (PERF.md).
 """
 
 from __future__ import annotations
+
+import ctypes
+import dataclasses
 
 import torch
 
@@ -37,21 +52,40 @@ from hpccg_tpu_torch.ops.cuda.fused_cg import (
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 
 
-def num_blocks(op: StencilOperator, dtype, recompute_ap: bool) -> int:
-    """Blocks of the kernel's cooperative grid on the current CUDA device
-    (all resident at once: occupancy x SMs, capped by the work items)."""
-    n = load_library().hpccg_wholesolve_num_blocks(op.nx, op.ny, op.nz, _DTYPE_CODE[dtype],
-                                                   op.stencil.value, int(recompute_ap))
-    if n <= 0:
-        raise RuntimeError(f"whole-solve kernel: no cooperative grid (CUDA error {-n})")
-    return n
+@dataclasses.dataclass(frozen=True)
+class WholeSolveGeometry:
+    """The kernel's cooperative grid for a solve: the tile (x points, y
+    rows), the z-planes of a work item, the work items and the blocks."""
+
+    tile_x: int
+    tile_y: int
+    z_chunk: int
+    items: int
+    blocks: int
 
 
-def work_items(op: StencilOperator) -> int:
-    """(x-tile, y-tile, z-chunk) work items of the kernel for op's grid; the
-    blocks take them in turns, so a block runs more than one when there are
-    more items than blocks."""
-    return load_library().hpccg_wholesolve_work_items(op.nx, op.ny, op.nz)
+def geometry(op: StencilOperator, dtype=None, recompute_ap: bool = False) -> WholeSolveGeometry:
+    """The cooperative grid of K5 (K6 with ``recompute_ap``) for op's grid in
+    ``dtype`` (default ``op.dtype``; the tile is 16 bytes a thread wide) on
+    the current CUDA device: all blocks resident at once (occupancy x SMs),
+    capped by the work items; the blocks take the items in turns."""
+    out = (ctypes.c_int * 5)()
+    err = load_library().hpccg_wholesolve_geometry(op.nx, op.ny, op.nz, _DTYPE_CODE[dtype or op.dtype],
+                                                   op.stencil.value, int(recompute_ap), ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"whole-solve kernel: no cooperative grid (CUDA error {err})")
+    return WholeSolveGeometry(*out)
+
+
+def num_blocks(op: StencilOperator, dtype=None, recompute_ap: bool = False) -> int:
+    """Blocks of the kernel's cooperative grid (``geometry``)."""
+    return geometry(op, dtype, recompute_ap).blocks
+
+
+def work_items(op: StencilOperator, dtype=None, recompute_ap: bool = False) -> int:
+    """(x-tile, y-tile, z-chunk) work items of the kernel (``geometry``); a
+    block runs more than one when there are more items than blocks."""
+    return geometry(op, dtype, recompute_ap).items
 
 
 def check(op: StencilOperator, b, x0) -> None:
@@ -60,6 +94,19 @@ def check(op: StencilOperator, b, x0) -> None:
     check_tensors(b, SUPPORTED_DTYPES, b=(b, n, None), x0=(x0, n, None))
     if b.data_ptr() == x0.data_ptr():
         raise ValueError("b and x0 must not alias")
+
+
+def plane_dot(u, v, nz: int, sdt):
+    """u . v as the kernel sums it, in ``sdt``: the products rounded to sdt,
+    each of the nz z-planes' products added in float64 and rounded to sdt
+    once, the plane sums added in sdt in z order (on the host, whose float
+    arithmetic is the card's). Returns a tensor of shape (1,) on u's
+    device."""
+    planes = (u.to(sdt) * v.to(sdt)).to(torch.float64).reshape(nz, -1).sum(1).to(sdt).cpu().numpy()
+    acc = planes.dtype.type(0)
+    for t in planes:
+        acc = acc + t
+    return torch.tensor([acc], dtype=sdt, device=u.device)
 
 
 def solve_plain(op: StencilOperator, b, x0, *, max_iter: int, tolerance: float,
@@ -76,7 +123,7 @@ def solve_plain(op: StencilOperator, b, x0, *, max_iter: int, tolerance: float,
         return apply_grid(op.grid(v.to(sdt)), op.stencil).reshape(-1)
 
     def dot(u, v):
-        return torch.dot(u.to(sdt), v.to(sdt)).reshape(1)
+        return plane_dot(u, v, op.nz, sdt)
 
     x, p = x0.clone(), x0.clone()
     r = (b.to(sdt) - A(x0)).to(vdt)
@@ -100,18 +147,21 @@ def launch(op: StencilOperator, b, x0, *, max_iter: int, tolerance: float, recom
     CGScalars)."""
     sdt = scalar_dtype(b.dtype)
     st = CGScalars.new(sdt, max_iter, tolerance, b.device)
-    blocks = num_blocks(op, b.dtype, recompute_ap)
+    g = geometry(op, b.dtype, recompute_ap)
+    tiles = -(-op.nx // g.tile_x) * -(-op.ny // g.tile_y)
     x, r, p0, p1 = (torch.empty_like(b) for _ in range(4))
     ap = None if recompute_ap else torch.empty_like(b)
-    parts = torch.empty((2 * blocks,), dtype=sdt, device=b.device)
+    # per dot: the (tile, plane) partials and the plane sums; a ticket per z chunk
+    parts = torch.empty((2 * op.nz * (tiles + 1),), dtype=torch.float64, device=b.device)
+    tickets = torch.zeros((2 * -(-op.nz // g.z_chunk),), dtype=torch.int32, device=b.device)
     lib = load_library()
     fn = {torch.float32: lib.hpccg_wholesolve_f32, torch.float64: lib.hpccg_wholesolve_f64,
           torch.bfloat16: lib.hpccg_wholesolve_bf16}[b.dtype]
     # the C entry points launch on the current device, which must be the stream's
     with torch.cuda.device(b.device):
         err = fn(b.data_ptr(), x0.data_ptr(), x.data_ptr(), r.data_ptr(), p0.data_ptr(), p1.data_ptr(),
-                 None if ap is None else ap.data_ptr(), parts.data_ptr(), parts.numel(),
-                 st.sc.data_ptr(), st.ic.data_ptr(), st.trace.data_ptr(),
+                 None if ap is None else ap.data_ptr(), parts.data_ptr(), parts.numel(), tickets.data_ptr(),
+                 tickets.numel(), st.sc.data_ptr(), st.ic.data_ptr(), st.trace.data_ptr(),
                  op.nx, op.ny, op.nz, op.stencil.value, int(recompute_ap),
                  torch.cuda.current_stream(b.device).cuda_stream)
     check_launch(err, "whole-solve kernel (cooperative launch)")
@@ -121,7 +171,8 @@ def launch(op: StencilOperator, b, x0, *, max_iter: int, tolerance: float, recom
 def solve(wrapper, op: StencilOperator, b, x0, *, max_iter: int, tolerance: float,
           recompute_ap: bool):
     """The body of K5's and K6's wrappers: the plain version for CPU
-    tensors; for CUDA tensors one launch, counted in ``wrapper.launches``.
+    tensors; for CUDA tensors one launch, counted in ``wrapper.launches``
+    and, by dtype, in ``wrapper.launches_f32`` or ``wrapper.launches_bf16``.
     Returns a CGResult."""
     from hpccg_tpu_torch.solver import _result
 
@@ -130,4 +181,8 @@ def solve(wrapper, op: StencilOperator, b, x0, *, max_iter: int, tolerance: floa
         return solve_plain(op, b, x0, max_iter=max_iter, tolerance=tolerance, recompute_ap=recompute_ap)
     x, st = launch(op, b, x0, max_iter=max_iter, tolerance=tolerance, recompute_ap=recompute_ap)
     wrapper.launches += 1
+    if b.dtype == torch.float32:
+        wrapper.launches_f32 += 1
+    if b.dtype == torch.bfloat16:
+        wrapper.launches_bf16 += 1
     return _result(x, st)

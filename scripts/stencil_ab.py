@@ -1,5 +1,6 @@
-"""Time the stencil kernels K1-K4 and the CG backends on them, for two
-checkouts in turns on the card, and compare their outputs bit for bit.
+"""Time the stencil kernels K1-K4, the CG backends on them, the whole
+solves K5/K6 and the collective K15/K16, for two checkouts in turns on the
+card, and compare their outputs.
 
     python3 scripts/stencil_ab.py PARENT_DIR [CHANGE_DIR]
 
@@ -14,17 +15,21 @@ parent, change, change, parent, and prints:
   bfloat16 at 256^3;
 - slope-timed us per CG iteration (CUDA events, legs of 65 and 1025
   iterations) of ``pallas_fused`` (K3, K4 and two finalize steps an
-  iteration) at 100^3 and 256^3 float32 and 256^3 bfloat16, and of the
-  whole solves ``megakernel`` (K5) and ``streamkernel`` (K6) at 100^3 and
-  256^3 float32;
+  iteration) and of the whole solves ``megakernel`` (K5) and
+  ``streamkernel`` (K6) at 100^3 and 256^3 float32 and 256^3 bfloat16;
+- slope-timed us per iteration of K15 (cg) and K16 (pipecg) at 1 x 100^3
+  float32 (legs of 17 and 97);
 - whether two launches of K3 and K4 give the same bits, partials included.
 
 Each process also saves K3's p' and Ap' (without and with halo planes) and
 K4's x' and r' on one seeded input per dtype (100^3 float32, float64 and
-bfloat16, 27- and 7-point) under ``build/stencil_ab/``; the script then
-compares the first parent's and the first change's saved outputs bit for
-bit, and each checkout's two runs with each other. Runs on a CUDA card
-only.
+bfloat16, 27- and 7-point), and the traces of 50-iteration K5 and K6
+solves at 100^3 float32 and float64 and 256^3 bfloat16, under
+``build/stencil_ab/``; the script then compares the first parent's and the
+first change's saved outputs, and each checkout's two runs with each
+other: K3/K4 outputs bit for bit, the traces within chip_smoke's
+``WS_TRACE`` above its floor (two whole-solve kernels that sum their
+partials in other orders are not bit-identical). Runs on a CUDA card only.
 """
 
 from __future__ import annotations
@@ -79,7 +84,6 @@ for dtype in (f32, f64, bf16):
             runs.append(fc.update_x_r(x1, r1, p, ap, alpha))
         same &= all(torch.equal(a, b) for a, b in zip(*runs))
         saved[f"{tag} K4 x'"], saved[f"{tag} K4 r'"] = runs[0][0].cpu(), runs[0][1].cpu()
-torch.save(saved, sys.argv[1])
 print("K3/K4 repeats bit-identical (partials included):", same, flush=True)
 
 line = []
@@ -98,31 +102,67 @@ for dims, dtype in (((100,) * 3, f32), ((256,) * 3, f32), ((256,) * 3, bf16)):
     line.append(tag + ": " + " ".join(f"{k}={cs._graph_ms(fn) * 1e3:.2f}" for k, fn in fns.items()) + " us")
 print("per launch:", "; ".join(line), flush=True)
 
-line = []
-cells = [((100,) * 3, f32, ("pallas_fused", "megakernel", "streamkernel")),
-         ((256,) * 3, f32, ("pallas_fused", "megakernel", "streamkernel")),
-         ((256,) * 3, bf16, ("pallas_fused",))]
-for dims, dtype, backends in cells:
+for dims, dtype in (((100,) * 3, f32), ((100,) * 3, f64), ((256,) * 3, bf16)):
     prob = generate_problem(ProblemConfig(*dims, stencil=27, dtype=dtype), device="cuda")
-    for backend in backends:
+    for backend in ("megakernel", "streamkernel"):
+        res = make_cg(prob.A, max_iter=50, tolerance=0.0, backend=backend)(prob.b, prob.x0)
+        saved[f"trace {dims[0]}^3 {str(dtype)[6:]} {backend}"] = res.trace.cpu()
+torch.save(saved, sys.argv[1])
+
+line = []
+cells = [((100,) * 3, f32), ((256,) * 3, f32), ((256,) * 3, bf16)]
+for dims, dtype in cells:
+    prob = generate_problem(ProblemConfig(*dims, stencil=27, dtype=dtype), device="cuda")
+    for backend in ("pallas_fused", "megakernel", "streamkernel"):
         def run(k):
             return make_cg(prob.A, max_iter=k + 1, tolerance=0.0, backend=backend)(prob.b, prob.x0)
         t = time_loop_slope(run, device="cuda", short=65, long=1025)
         line.append(f"{dims[0]}^3 {str(dtype)[6:]} {backend}={t * 1e6:.2f}")
 print("us/iter:", " ".join(line), flush=True)
+
+from hpccg_tpu_torch.parallel import generate_problem_sharded
+from hpccg_tpu_torch.parallel.cg import local_operator
+cfg = ProblemConfig(100, 100, 100, dtype=f32)
+op, prob = local_operator(cfg), generate_problem_sharded(cfg, cs._one_card(1))
+line = []
+for name, method in (("K15 cg", "cg"), ("K16 pipecg", "pipecg")):
+    kern = cs._coll_kernel(method)
+    t = time_loop_slope(lambda k: kern(op, prob.b, prob.x0, max_iter=k + 1), device="cuda", short=17, long=97)
+    line.append(f"{name}={t * 1e6:.2f}")
+print("collective 1 x 100^3 float32 us/iter:", " ".join(line), flush=True)
 """
 
 
+# the whole solves' traces: chip_smoke.WS_TRACE, (rtol, floor) per dtype
+WS_TRACE = {"float32": (1e-4, 1e-5), "float64": (1e-10, 1e-11), "bfloat16": (1.5e-2, 1e-4)}
+
+
+def trace_gap(x, y, dtype) -> tuple:
+    """(worst relative gap of two traces above WS_TRACE's floor of x[0],
+    the rtol it is held to)."""
+    rtol, floor = WS_TRACE[dtype]
+    x, y = x.double(), y.double()
+    head = x > floor * x[0]
+    return float(((x - y).abs() / x)[head].max()), rtol
+
+
 def compare(a: dict, b: dict) -> str:
-    """'bit-identical' or the keys whose bits differ (with the share of
-    elements that differ)."""
-    bad = []
+    """'bit-identical' (traces: 'within WS_TRACE') or the keys that differ
+    (with the share of elements, or the trace gap)."""
+    bad, gaps = [], []
     for key in a:
         x, y = a[key].reshape(-1), b[key].reshape(-1)
+        if key.startswith("trace "):
+            gap, rtol = trace_gap(x, y, key.split()[2])
+            gaps.append(f"{' '.join(key.split()[1:])} {gap:.2e}")
+            if not gap <= rtol:
+                bad.append(f"{key} (gap {gap:.2e} > {rtol:g})")
+            continue
         if not torch.equal(x.view(torch.int16) if x.dtype == torch.bfloat16 else x,
                            y.view(torch.int16) if y.dtype == torch.bfloat16 else y):
             bad.append(f"{key} ({float((x != y).float().mean()):.2e} of the elements)")
-    return "bit-identical" if not bad else "DIFFER: " + "; ".join(bad)
+    what = "K3/K4 bit-identical, traces within WS_TRACE" if not bad else "DIFFER: " + "; ".join(bad)
+    return what + " (trace gaps: " + ", ".join(gaps) + ")"
 
 
 def main(argv) -> int:

@@ -78,24 +78,22 @@ def parse(variant: str) -> dict:
     return dict(zip(("TY", "ZC", "NSTAGE", "MIN_BLOCKS"), map(int, m.groups())))
 
 
-def make_variant(variant: str) -> Path:
-    """A copy of the package whose stencil kernels take the variant's
-    constants."""
-    dst = OUT / variant
+def copy_with_defines(dst: Path, source: str, defines: dict) -> Path:
+    """A copy of the package and chip_smoke.py at dst whose
+    ``csrc/<source>`` starts with a #define line for each item of
+    ``defines``."""
     if dst.exists():
         shutil.rmtree(dst)
     shutil.copytree(ROOT / "hpccg_tpu_torch", dst / "hpccg_tpu_torch", ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy(ROOT / "chip_smoke.py", dst / "chip_smoke.py")
-    src = dst / "hpccg_tpu_torch" / "csrc" / "stencil.cu"
-    defines = "".join(f"#define HPCCG_STENCIL_{k} {v}\n" for k, v in parse(variant).items())
-    src.write_text(defines + src.read_text())
+    src = dst / "hpccg_tpu_torch" / "csrc" / source
+    src.write_text("".join(f"#define {k} {v}\n" for k, v in defines.items()) + src.read_text())
     return dst
 
 
-def main(argv) -> int:
-    order = list(argv) or DEFAULTS
-    dirs = {v: make_variant(v) for v in dict.fromkeys(order)}
-
+def build_and_time(dirs: dict, order: list, timer: str) -> None:
+    """Build every copy (three at a time), then run ``timer`` in each, in
+    the order given and again in reverse, printing what it prints."""
     def build(item):
         variant, cwd = item
         proc = subprocess.run([sys.executable, "-c", BUILD], cwd=cwd, capture_output=True, text=True, timeout=900)
@@ -106,9 +104,16 @@ def main(argv) -> int:
             print(f"--- build {variant} (rc {proc.returncode}): "
                   f"{proc.stdout.strip() or proc.stderr[-3000:]} s", flush=True)
     for variant in order + order[::-1]:
-        proc = subprocess.run([sys.executable, "-c", TIMER], cwd=dirs[variant], capture_output=True, text=True,
+        proc = subprocess.run([sys.executable, "-c", timer], cwd=dirs[variant], capture_output=True, text=True,
                               timeout=600)
         print(f"--- {variant} (rc {proc.returncode}): {proc.stdout.strip() or proc.stderr[-3000:]}", flush=True)
+
+
+def main(argv) -> int:
+    order = list(argv) or DEFAULTS
+    dirs = {v: copy_with_defines(OUT / v, "stencil.cu", {f"HPCCG_STENCIL_{k}": n for k, n in parse(v).items()})
+            for v in dict.fromkeys(order)}
+    build_and_time(dirs, order, TIMER)
     return 0
 
 

@@ -8,8 +8,10 @@ runs it without the suite's conftest:
 
 Tolerances as in test_torch_kernels.py (max |kernel - plain| over max |plain|
 for vectors, relative for dots): f64 1e-13 / 1e-12, f32 1e-5 / 1e-4. The
-whole-solve kernels K5/K6 against their plain versions, at 33x17x9 and at
-200x170x150 (more work items than blocks, so blocks take several in turns):
+whole-solve kernels K5/K6 against their plain versions, at 33x17x9,
+200x170x150 and 300x301x250 (more work items than blocks, so blocks take
+several in turns), at the edges of their tile and on b and x0 views at odd
+element offsets:
 niters equal, the trace within 1e-10 / 1e-4 / 1.5e-2 (f64 / f32 / bf16)
 while it stays above 1e-11 / 1e-5 / 1e-4 of trace[0] (the solve stops
 there, on a tolerance between two of the plain trace's entries), x within
@@ -159,26 +161,30 @@ def _x_close(got, want, rtol=None):
         assert float((got - want).abs().max()) <= rtol * float(want.abs().max())
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("stencil", [27, 7])
-@pytest.mark.parametrize("which", ["mega", "stream"])
-@pytest.mark.parametrize("dims", [(33, 17, 9), (200, 170, 150)], ids=["33x17x9", "200x170x150"])
-def test_whole_solve_matches_plain(cuda_device, dims, which, stencil, dtype):
-    from hpccg_tpu_torch.ops.cuda import wholesolve
+# a grid with more work items than the cooperative grid has blocks in every
+# dtype, so that blocks take several items in turns (33x17x9 and
+# 200x170x150 give each block one)
+WS_MULTI = (300, 301, 250)
 
-    kern, plain = ((mk.cg_solve_mega, mk.cg_solve_mega_plain) if which == "mega"
-                   else (sk.cg_solve_stream, sk.cg_solve_stream_plain))
-    prob = generate_problem(ProblemConfig(*dims, stencil=stencil, dtype=dtype), cuda_device)
-    if dims != (33, 17, 9):
-        assert wholesolve.work_items(prob.A) > wholesolve.num_blocks(prob.A, dtype, which == "stream")
+
+def _kernel_pair(which):
+    return ((mk.cg_solve_mega, mk.cg_solve_mega_plain) if which == "mega"
+            else (sk.cg_solve_stream, sk.cg_solve_stream_plain))
+
+
+def _whole_solve_case(which, A, b, x0, dtype):
+    """K5 or K6 against its plain version on (A, b, x0), max_iter 30,
+    stopped by a tolerance between the two plain trace entries that
+    straddle WS_TRACE's floor: niters equal, the trace within its rtol, x as
+    _x_close holds it, one launch per solve, two solves bit-identical."""
+    kern, plain = _kernel_pair(which)
     rtol, floor = WS_TRACE[dtype]
-    args = (prob.A, prob.b, prob.x0)
-    tr = plain(*args, max_iter=30).trace
+    tr = plain(A, b, x0, max_iter=30).trace
     below = torch.nonzero(tr < floor * tr[0])
     tol = 0.0 if below.numel() == 0 else float(torch.sqrt(tr[int(below[0]) - 1] * tr[int(below[0])]))
-    want = plain(*args, max_iter=30, tolerance=tol)
+    want = plain(A, b, x0, max_iter=30, tolerance=tol)
     before = kern.launches
-    got, again = (kern(*args, max_iter=30, tolerance=tol) for _ in range(2))
+    got, again = (kern(A, b, x0, max_iter=30, tolerance=tol) for _ in range(2))
     torch.cuda.synchronize()
     assert kern.launches == before + 2
     n = int(want.niters) + 1
@@ -188,6 +194,102 @@ def test_whole_solve_matches_plain(cuda_device, dims, which, stencil, dtype):
     assert bool(torch.isnan(got.trace[n:]).all())
     _x_close(got.x, want.x)
     assert torch.equal(got.x, again.x) and torch.equal(got.trace[:n], again.trace[:n])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stencil", [27, 7])
+@pytest.mark.parametrize("which", ["mega", "stream"])
+@pytest.mark.parametrize("dims", [(33, 17, 9), (200, 170, 150), WS_MULTI],
+                         ids=["33x17x9", "200x170x150", "300x301x250"])
+def test_whole_solve_matches_plain(cuda_device, dims, which, stencil, dtype):
+    from hpccg_tpu_torch.ops.cuda import wholesolve
+
+    prob = generate_problem(ProblemConfig(*dims, stencil=stencil, dtype=dtype), cuda_device)
+    if dims == WS_MULTI:
+        stream = which == "stream"
+        assert wholesolve.work_items(prob.A, dtype, stream) > wholesolve.num_blocks(prob.A, dtype, stream)
+    _whole_solve_case(which, prob.A, prob.b, prob.x0, dtype)
+
+
+WS_EDGES = ["nx<V", "nx=100", "nx=TX-1", "nx=TX+1", "ny%TY", "nz=ZC-1", "nz=ZC+1"]
+
+
+def _ws_edge_shape(edge, dtype, stencil, recompute_ap):
+    """(nx, ny, nz) at ``edge`` of the whole-solve kernel's geometry for
+    ``dtype``: a thread's V points (16 bytes), the tile's width TX = 32 V
+    and height TY, and its z chunk ZC. The kernel picks ZC per grid, so
+    the z edges are grids whose chosen chunk is one above or one below
+    their nz, the largest chunk for which the search finds one."""
+    from hpccg_tpu_torch.ops.cuda import wholesolve
+
+    def geo(nx, ny, nz):
+        return wholesolve.geometry(StencilOperator(nx, ny, nz, Stencil(stencil), dtype), dtype, recompute_ap)
+
+    g = geo(64, 64, 64)
+    tx, ty = g.tile_x, g.tile_y
+    shapes = {"nx<V": (max(tx // 32 - 1, 1), ty + 3, 5), "nx=100": (100, ty + 3, 7), "nx=TX-1": (tx - 1, ty + 1, 6),
+              "nx=TX+1": (tx + 1, 2 * ty + 1, 5), "ny%TY": (33, 3 * ty + 5, 9)}
+    if edge in shapes:
+        return shapes[edge]
+    zc = geo(tx * 8, ty * 128, 4096).z_chunk
+    while zc >= 2:
+        nz = zc - 1 if edge == "nz=ZC-1" else zc + 1
+        for ky in range(1, 4096):
+            if geo(tx + 1, ty * ky + 1, nz).z_chunk == zc:
+                return tx + 1, ty * ky + 1, nz
+        zc //= 2
+    raise AssertionError(f"no grid at {edge}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stencil", [27, 7])
+@pytest.mark.parametrize("which", ["mega", "stream"])
+@pytest.mark.parametrize("edge", WS_EDGES)
+def test_whole_solve_at_tile_edges(cuda_device, edge, which, stencil, dtype):
+    """K5/K6 against their plain versions on grids at the edges of their
+    tile (_ws_edge_shape), with the limits of test_whole_solve_matches_plain."""
+    dims = _ws_edge_shape(edge, dtype, stencil, which == "stream")
+    prob = generate_problem(ProblemConfig(*dims, stencil=stencil, dtype=dtype), cuda_device)
+    _whole_solve_case(which, prob.A, prob.b, prob.x0, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("which", ["mega", "stream"])
+def test_whole_solve_on_unaligned_views(cuda_device, which, dtype):
+    """K5/K6 with b and x0 views at odd element offsets (1 and 3), which
+    init stages and reads on narrower accesses: on a random x0 the same
+    bits as on aligned copies of the same values (niters, trace and x),
+    and on the problem's own b and x0 the plain version's result as in
+    test_whole_solve_matches_plain."""
+    prob = generate_problem(ProblemConfig(100, 9, 7, dtype=dtype), cuda_device)
+    n = prob.b.numel()
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+
+    def view(t, offset):
+        out = _at(n, offset, gen, cuda_device, dtype)
+        return out if t is None else out.copy_(t)
+
+    b, x0 = view(prob.b, 1), view(None, 3)
+    assert b.data_ptr() % 16 != 0 and x0.data_ptr() % 16 != 0
+    kern, _ = _kernel_pair(which)
+    got, want = kern(prob.A, b, x0, max_iter=30), kern(prob.A, b.clone(), x0.clone(), max_iter=30)
+    assert int(got.niters) == int(want.niters)
+    assert torch.equal(got.x, want.x) and torch.equal(got.trace[: int(got.niters) + 1], want.trace[: int(got.niters) + 1])
+    _whole_solve_case(which, prob.A, view(prob.b, 1), view(prob.x0, 3), dtype)
+
+
+@pytest.mark.parametrize("which", ["mega", "stream"])
+def test_whole_solve_plain_is_the_same_on_card_and_cpu(cuda_device, which):
+    """The plain version, which the card holds K5/K6 against, gives the same
+    bits on the card as on the CPU, where the CPU tests hold it against the
+    JAX kernels: bf16 at 257x465x17, 30 iterations, where float32
+    torch.dot sums parted the two in 14% of x (PERF.md)."""
+    _, plain = _kernel_pair(which)
+    prob = generate_problem(ProblemConfig(257, 465, 17, dtype=torch.bfloat16), cuda_device)
+    card = plain(prob.A, prob.b, prob.x0, max_iter=30)
+    cpu = plain(prob.A, prob.b.cpu(), prob.x0.cpu(), max_iter=30)
+    assert int(card.niters) == int(cpu.niters) == 29
+    assert torch.equal(card.trace.cpu(), cpu.trace) and torch.equal(card.x.cpu(), cpu.x)
 
 
 @pytest.mark.parametrize("backend", ["megakernel", "streamkernel", "pallas_dd"])
