@@ -24,9 +24,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    stencil as loaded and after RCM, a random wide scatter and a skewed
    matrix (phase_sparse_kernels); then the collective whole solves K15 (cg,
    cg1) and K16 (pipecg) against theirs with 1, 2, 4, 6 and 8 ranks on the
-   one card, per rank 33x17x9 (27/7-point), 64x48x13 and 128x64x16 (more
-   work items than a rank's blocks at 6 and 8 ranks), float32 and float64
-   (phase_collective_kernels); then K17 (cg, cg1) against its plain
+   one card, per rank 33x17x9 (27/7-point), 64x48x13, 128x64x16 and
+   64x400x9 (more work items than a rank's blocks at 8 ranks), float32
+   and float64, then on grids at the edges of their staged tile (nx below
+   a thread's 16 bytes, nx = 100, one below and one above the tile's width,
+   ny not a multiple of its height, nz one below and one above the chosen
+   z chunk) at 1, 2, 4 and 8 ranks and on b/x0 shards that are views at odd
+   element offsets, each line with the grid and the access widths the
+   launches ran at (phase_collective_kernels; bfloat16 in
+   phase_collective_bf16_kernels); then K17 (cg, cg1) against its plain
    version with 1, 2, 4, 6 and 8 ranks on the card, float32 and float64,
    on symmetric bands: scattered within +-200 at 2048 and 100000 rows per
    rank, the diagonal alone, a band as wide as the shard
@@ -82,7 +88,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    49 launches each of K3 and K4) against the stencil trace, twice,
    bit-identical; (i) slice 9, make_cg at 256^3 on megakernel and
    streamkernel (one launch per solve), float32 against the stencil
-   trace and both dtypes against their plain versions;
+   trace and both dtypes against their plain versions; (j) slice 10,
+   make_distributed_cg on collective (cg, cg1, pipecg) at 4 x 100^3
+   float32, past the L2, held as (e) holds its cells;
 5. golden: the reference's 10^3 float64 run on pallas_fused, megakernel,
    streamkernel and pallas_dd, from an HPC-row file through the CLI (DIA)
    and through make_cg on the EllMatrix (ELL), as two 10x10x5 ranks on
@@ -111,7 +119,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    K9-K12 per launch with effective GB/s; the collective backends at 1 x
    100^3 (beside megakernel), 4 x 100^3 and 8 x 64^3 (beside distributed
    pallas_fused; legs of 17 and 97; N ranks share one card, so these are no
-   scaling numbers) and K15/K16 against their plain versions; at 4 x
+   scaling numbers) and K15/K16 against their plain versions at 1 x 100^3
+   and 4 x 100^3; at 4 x
    128^3/4 float32 DIA (legs of 17 and 145) K17 cg and cg1, dia-halo, the
    single-device DIA solve, K17 against its plain version and the busy
    share of one 50-iteration K17 solve. Nothing is asserted on times.
@@ -124,8 +133,9 @@ rate) and, where one PyTorch call computes the same function, that call's
 ms (conv3d for K1 and its bf16 instance, a sparse CSR product for K9-K14,
 torch.add and torch.mul for the probes; null elsewhere). The bf16 rows
 (K1/bf16-K4/bf16) are timed at 256^3, the probes at 1 GiB per array; K3
-and K4 float32 have a second row at 256^3, past the L2, and K5 and K6 a
-second and a third, at 256^3 in float32 and bfloat16.
+and K4 float32 have a second row at 256^3, past the L2, K5 and K6 a
+second and a third, at 256^3 in float32 and bfloat16, and K15 and K16 a
+second, at 4 x 100^3 in float32.
 
 Each phase prints its seconds. The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -197,6 +207,10 @@ KERNELS = {
                                                 "hpccg_tpu/ops/pallas/megakernel.py:119"),
     "K6/bf16 whole solve, Ap recomputed (streamkernel), 256^3": ("hpccg_tpu_torch/csrc/wholesolve.cu",
                                                                  "hpccg_tpu/ops/pallas/streamkernel.py:92"),
+    "K15 collective whole solve (cg, cg1), 4 x 100^3": ("hpccg_tpu_torch/csrc/collective.cu",
+                                                        "hpccg_tpu/ops/pallas/collective_kernel.py:329"),
+    "K16 pipelined collective whole solve, 4 x 100^3": ("hpccg_tpu_torch/csrc/collective.cu",
+                                                        "hpccg_tpu/ops/pallas/collective_kernel.py:596"),
 }
 SLICE1 = list(KERNELS)[:5]  # the kernels of slice 1's main path
 SLICE2 = list(KERNELS)[5:8]
@@ -206,7 +220,8 @@ SLICE5 = list(KERNELS)[16:17]
 SLICE6 = list(KERNELS)[17:23]
 SLICE7 = list(KERNELS)[23:28]
 SLICE8 = list(KERNELS)[28:30]
-SLICE9 = list(KERNELS)[30:]
+SLICE9 = list(KERNELS)[30:34]
+SLICE10 = list(KERNELS)[34:]
 K5, K6, K7 = SLICE2
 K9, K10, K11, K12, K13, K14 = SLICE3
 K15, K16 = SLICE4
@@ -215,6 +230,7 @@ B1, B2, B3, B4, COPY, WRITE = SLICE6
 C15, C16, D9, D9W, E11 = SLICE7
 BIG3, BIG4 = SLICE8
 BIG5, BIG6, BIG5B, BIG6B = SLICE9
+BIG15, BIG16 = SLICE10
 WIDE = [K13, K14]  # counted on the wide-scatter solve
 # tolerances, kernel vs plain on the same inputs: the sums run in another
 # order (the xy-sums associate like the plain version, but the compiler may
@@ -823,7 +839,15 @@ def _counters():
     counters += [(st.update_p_apply, "launches"), (fc.update_x_r, "launches")]
     counters += [(mk.cg_solve_mega, "launches_f32"), (sk.cg_solve_stream, "launches_f32"),
                  (mk.cg_solve_mega, "launches_bf16"), (sk.cg_solve_stream, "launches_bf16")]
+    # slice 10's rows are K15/K16 at 4 x 100^3: their own main path's count
+    counters += [(col.cg_collective, "launches"), (col.cg_collective_pipelined, "launches")]
     return dict(zip(KERNELS, counters))
+
+
+def _launch_sum(delta) -> int:
+    """The launches in a count delta, each launch once (slice 10's rows
+    read the counters of K15 and K16)."""
+    return sum(d for n, d in delta.items() if n not in SLICE10)
 
 
 def _counts() -> dict:
@@ -1301,10 +1325,11 @@ def phase_main_path() -> dict:
     """Slice 1's main path, slice 2's, slice 3's and its wide-scatter solves,
     slice 4's distributed solves, slice 5's distributed file-mode solves,
     slice 6's bf16 K1-K4 path and slice 7's bf16 collective and file-mode
-    solves and slice 8's 256^3 float32 pallas_fused solve, each with its own
-    counts; the launches reported for each kernel are those of its own run.
-    Slice 9's kernels (K5/K6 at 256^3, float32 and bfloat16) run on slice
-    2's path and are read from its counts."""
+    solves, slice 8's 256^3 float32 pallas_fused solve and slice 10's 4 x
+    100^3 collective solves, each with its own counts; the launches reported
+    for each kernel are those of its own run. Slice 9's kernels (K5/K6 at
+    256^3, float32 and bfloat16) run on slice 2's path and are read from its
+    counts."""
     first = _drive(_main_path_slice1, SLICE1)
     second = _drive(_main_path_slice2, SLICE2 + SLICE9)
     third = _drive(_main_path_slice3, [K9, K10, K11, K12])
@@ -1314,8 +1339,10 @@ def phase_main_path() -> dict:
     sixth = _drive(_main_path_slice6, SLICE6)
     seventh = _drive(_main_path_slice7, SLICE7)
     eighth = _drive(_main_path_slice8, SLICE8)
+    tenth = _drive(_main_path_slice10, SLICE10)
     runs = [(SLICE1, first), (SLICE2, second), ([K9, K10, K11, K12], third), (WIDE, wide), (SLICE4, fourth),
-            (SLICE5, fifth), (SLICE6, sixth), (SLICE7, seventh), (SLICE8, eighth), (SLICE9, second)]
+            (SLICE5, fifth), (SLICE6, sixth), (SLICE7, seventh), (SLICE8, eighth), (SLICE9, second),
+            (SLICE10, tenth)]
     return {n: counts[n] for names, counts in runs for n in names}
 
 
@@ -1533,10 +1560,12 @@ def phase_timing_explicit(card: str, stats: dict) -> None:
 # ------------------------------------------------------------ slice 4: the distributed stencil path
 
 COLL_NDEVS = [1, 2, 4, 6, 8]  # the rank counts of tests/test_collective.py, every rank on one card
-# per-rank shapes of the kernel-vs-plain phase: two unaligned ones, and one
-# whose 64 work items outnumber a rank's blocks at 6 and 8 ranks
-COLL_SHAPES = [(33, 17, 9), (64, 48, 13), (128, 64, 16)]
-COLL_MULTI = (128, 64, 16)
+# per-rank shapes of the kernel-vs-plain phase: two unaligned ones, 128x64x16,
+# and one whose work items outnumber a rank's blocks at 8 ranks (50 tiles of
+# 32 V x 8 points against at most 3 x 132 / 8 blocks, whatever z chunk the
+# geometry takes)
+COLL_SHAPES = [(33, 17, 9), (64, 48, 13), (128, 64, 16), (64, 400, 9)]
+COLL_MULTI = (64, 400, 9)
 COLL_ITERS = 30
 # pipecg against another pipecg run (trace rtol, floor) and x: its w = A r
 # and z = A s recurrences carry each run's rounding forward, and two runs
@@ -1607,17 +1636,118 @@ def _coll_limits(method, dtype):
     return rtol, floor, (PIPE_X_RTOL if method == "pipecg" else WS_X_RTOL)[dtype]
 
 
+def _coll_case(op, prob, method, dtype, stencil, what) -> tuple:
+    """One collective solve against its plain version, COLL_ITERS
+    iterations (7-point: stopped at the floor, on a tolerance between two
+    of the plain trace's entries, as phase_whole_solve_kernels does: it
+    flushes below): niters equal, the trace within _coll_limits above the
+    floor, x, and two launches bit-identical. Returns (niters, trace
+    error, max|x - x_plain|)."""
+    from hpccg_tpu_torch.ops.cuda import collective as col
+
+    rtol, floor, xrtol = _coll_limits(method, dtype)
+    want = col.solve_plain(op, prob.b, prob.x0, method=method, max_iter=COLL_ITERS)
+    tol = _ws_tolerance(want.trace, floor) if stencil == 7 else 0.0
+    if tol:
+        want = col.solve_plain(op, prob.b, prob.x0, method=method, max_iter=COLL_ITERS, tolerance=tol)
+    kern = _coll_kernel(method)
+    got, again = (kern(op, prob.b, prob.x0, max_iter=COLL_ITERS, tolerance=tol) for _ in range(2))
+    torch.cuda.synchronize()
+    if int(got.niters) != int(want.niters):
+        raise AssertionError(f"{what}: niters {int(got.niters)} vs plain {int(want.niters)}")
+    n = int(want.niters) + 1
+    ref = want.trace[:n].double().cpu()
+    worst = _head_rel(got.trace[:n].double().cpu(), ref, rtol, floor, what)
+    if not bool(torch.isnan(got.trace[n:]).all()):
+        raise AssertionError(f"{what}: trace entries past niters")
+    gx, wx = torch.cat(got.x), torch.cat(want.x)
+    # a flush of both r.r and r.u (f32 cg1, 7-point) turns x to NaN on both
+    # sides one iteration later: the reference recurrence's 0/0
+    nan = torch.isnan(wx)
+    if not torch.equal(torch.isnan(gx), nan):
+        raise AssertionError(f"{what}: x is NaN where the plain version's is not")
+    xerr = float((gx - wx)[~nan].abs().max()) if not bool(nan.all()) else 0.0
+    if not xerr <= xrtol * float(wx[~nan].abs().max() if not bool(nan.all()) else 1.0):
+        raise AssertionError(f"{what}: max|x - x_plain| = {xerr:.3e}")
+    same = all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got.x, again.x))
+    if not (same and torch.equal(_bits(got.trace), _bits(again.trace))):
+        raise AssertionError(f"{what}: two launches differ")
+    return n - 1, worst, xerr
+
+
+COLL_EDGES = ["nx<V", "nx=100", "nx=TX-1", "nx=TX+1", "ny%TY", "nz=ZC-1", "nz=ZC+1"]
+
+
+def _coll_edge_shape(edge, ndev, dtype, stencil):
+    """A rank's (nx, ny, nz) at ``edge`` of K15/K16's geometry for ``dtype``
+    at ``ndev`` ranks (tests/test_torch_collective_edges.py): a thread's V
+    points (16 bytes), the tile's width TX = 32 V and height TY, and its z
+    chunk ZC, which the geometry picks per grid and rank count: the z edges
+    are grids whose chosen chunk is one above or one below their nz."""
+    from hpccg_tpu_torch.config import Stencil
+    from hpccg_tpu_torch.operators import StencilOperator
+    from hpccg_tpu_torch.ops.cuda import collective as col
+
+    def geo(nx, ny, nz):
+        return col.geometry(StencilOperator(nx, ny, nz, Stencil(stencil), dtype), ndev, dtype, "cg")
+
+    g = geo(64, 64, 64)
+    tx, ty = g.tile_x, g.tile_y
+    shapes = {"nx<V": (max(tx // 32 - 1, 1), ty + 3, 5), "nx=100": (100, ty + 3, 7), "nx=TX-1": (tx - 1, ty + 1, 6),
+              "nx=TX+1": (tx + 1, 2 * ty + 1, 5), "ny%TY": (33, 3 * ty + 5, 9)}
+    if edge in shapes:
+        return shapes[edge]
+    zc = geo(tx * 8, ty * 128, 4096).z_chunk
+    while zc >= 2:
+        nz = zc - 1 if edge == "nz=ZC-1" else zc + 1
+        for ky in range(1, 4096):
+            if geo(tx + 1, ty * ky + 1, nz).z_chunk == zc:
+                return tx + 1, ty * ky + 1, nz
+        zc //= 2
+    raise AssertionError(f"no grid at {edge}")
+
+
+def _coll_edge_cases(dtype):
+    """One case per edge of the staged tile for ``dtype``: (tag, ndev,
+    dims, stencil, b/x0 view offsets), the rank counts 1, 2, 4, 8 in turn,
+    27-point on the even edges and 7-point on the odd ones; then b and x0
+    shards that are views at element offsets 1 and 3 at 4 ranks."""
+    cases = []
+    for i, edge in enumerate(COLL_EDGES):
+        ndev, stencil = COLL_BF16_NDEVS[i % 4], 27 if i % 2 == 0 else 7
+        cases.append((edge, ndev, _coll_edge_shape(edge, ndev, dtype, stencil), stencil, None))
+    cases.append(("views", 4, (128, 9, 7), 27, (1, 3)))
+    return cases
+
+
+def _coll_edge_problem(ndev, dims, stencil, dtype, offsets):
+    """The sharded problem of an edge case; with ``offsets``, b and x0 copied
+    into views at those element offsets."""
+    from hpccg_tpu_torch import ProblemConfig
+    from hpccg_tpu_torch.parallel import generate_problem_sharded
+    from hpccg_tpu_torch.parallel.cg import local_operator
+
+    cfg = ProblemConfig(*dims, stencil=stencil, dtype=dtype)
+    op, prob = local_operator(cfg), generate_problem_sharded(cfg, _one_card(ndev))
+    if offsets:
+        def view(v, k):
+            return torch.empty((v.numel() + k,), dtype=dtype, device=v.device)[k:].copy_(v)
+
+        prob = dataclasses.replace(prob, b=tuple(view(v, offsets[0]) for v in prob.b),
+                                   x0=tuple(view(v, offsets[1]) for v in prob.x0))
+    return op, prob
+
+
 def phase_collective_kernels() -> dict:
     """K15 (cg, cg1) and K16 (pipecg) against their plain versions with
     every rank on cuda:0, at 1, 2, 4, 6 and 8 ranks, COLL_ITERS iterations:
-    per rank 33x17x9 (27- and 7-point), 64x48x13 and COLL_MULTI (27-point;
-    at 6 and 8 ranks COLL_MULTI's work items outnumber a rank's blocks),
-    float32 and float64. niters equal, the trace within its limits above
-    the floor (below it a recurrence residual follows each run's rounding;
-    a 7-point solve stops there, on a tolerance between two of the plain
-    trace's entries, as phase_whole_solve_kernels does: it flushes below),
-    x, and two launches bit-identical. Returns K15/K16's max|x -
-    x_plain| over all cases."""
+    per rank 33x17x9 (27- and 7-point), 64x48x13, 128x64x16 and COLL_MULTI
+    (27-point; at 8 ranks COLL_MULTI's work items outnumber a rank's
+    blocks), float32 and float64; then at the staged tile's edges, one
+    case each (_coll_edge_cases), and on b/x0 views at odd offsets. As
+    _coll_case holds them; each line gives the grid and the access widths
+    (state and landing planes; with b and x0) the launches ran at. Returns
+    K15/K16's max|x - x_plain| over all cases."""
     from hpccg_tpu_torch import ProblemConfig
     from hpccg_tpu_torch.ops.cuda import collective as col
     from hpccg_tpu_torch.parallel import generate_problem_sharded
@@ -1625,6 +1755,20 @@ def phase_collective_kernels() -> dict:
 
     stats = {name: {"max_abs_err": 0.0} for name in SLICE4}
     multi = 0
+
+    def case(op, prob, ndev, dtype, stencil, tag):
+        line = []
+        for method in ("cg", "cg1", "pipecg"):
+            n, worst, xerr = _coll_case(op, prob, method, dtype, stencil, f"{METHOD_KERNEL[method].split()[0]} "
+                                        f"{method} {tag}")
+            stat = stats[METHOD_KERNEL[method]]
+            stat["max_abs_err"] = max(stat["max_abs_err"], xerr)
+            g = col.geometry(op, ndev, dtype, method)
+            line.append(f"{method} niters {n} trace {worst:.1e} x {xerr:.1e} ({g.items} items/"
+                        f"{g.blocks_per_rank} blocks, zc {g.z_chunk}, access {col.launch.access})")
+        say(f"[collective] {tag}: ok, bit-identical; " + "; ".join(line))
+        return g
+
     for ndev in COLL_NDEVS:
         mesh = _one_card(ndev)
         for dims in COLL_SHAPES:
@@ -1632,53 +1776,24 @@ def phase_collective_kernels() -> dict:
                 for dtype in (torch.float32, torch.float64):
                     cfg = ProblemConfig(*dims, stencil=stencil, dtype=dtype)
                     op, prob = local_operator(cfg), generate_problem_sharded(cfg, mesh)
-                    tag = f"{ndev} x {dims[0]}x{dims[1]}x{dims[2]} {stencil}pt {str(dtype)[6:]}"
-                    line = []
-                    for method in ("cg", "cg1", "pipecg"):
-                        what = f"{METHOD_KERNEL[method].split()[0]} {method} {tag}"
-                        rtol, floor, xrtol = _coll_limits(method, dtype)
-                        want = col.solve_plain(op, prob.b, prob.x0, method=method, max_iter=COLL_ITERS)
-                        tol = _ws_tolerance(want.trace, floor) if stencil == 7 else 0.0
-                        if tol:
-                            want = col.solve_plain(op, prob.b, prob.x0, method=method, max_iter=COLL_ITERS,
-                                                   tolerance=tol)
-                        kern = _coll_kernel(method)
-                        got, again = (kern(op, prob.b, prob.x0, max_iter=COLL_ITERS, tolerance=tol) for _ in range(2))
-                        torch.cuda.synchronize()
-                        if int(got.niters) != int(want.niters):
-                            raise AssertionError(f"{what}: niters {int(got.niters)} vs plain {int(want.niters)}")
-                        n = int(want.niters) + 1
-                        ref = want.trace[:n].double().cpu()
-                        worst = _head_rel(got.trace[:n].double().cpu(), ref, rtol, floor, what)
-                        if not bool(torch.isnan(got.trace[n:]).all()):
-                            raise AssertionError(f"{what}: trace entries past niters")
-                        gx, wx = torch.cat(got.x), torch.cat(want.x)
-                        # a flush of both r.r and r.u (f32 cg1, 7-point) turns x to NaN on both
-                        # sides one iteration later: the reference recurrence's 0/0
-                        nan = torch.isnan(wx)
-                        if not torch.equal(torch.isnan(gx), nan):
-                            raise AssertionError(f"{what}: x is NaN where the plain version's is not")
-                        xerr = float((gx - wx)[~nan].abs().max()) if not bool(nan.all()) else 0.0
-                        if not xerr <= xrtol * float(wx[~nan].abs().max() if not bool(nan.all()) else 1.0):
-                            raise AssertionError(f"{what}: max|x - x_plain| = {xerr:.3e}")
-                        same = all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got.x, again.x))
-                        if not (same and torch.equal(_bits(got.trace), _bits(again.trace))):
-                            raise AssertionError(f"{what}: two launches differ")
-                        stat = stats[METHOD_KERNEL[method]]
-                        stat["max_abs_err"] = max(stat["max_abs_err"], xerr)
-                        bpr = col.blocks_per_rank(op, ndev, dtype, method)
-                        items = col.work_items(op)
-                        multi += int(dims == COLL_MULTI and items > bpr)
-                        line.append(f"{method} niters {n - 1} trace {worst:.1e} x {xerr:.1e} ({items} items/{bpr} blocks)")
-                    say(f"[collective] {tag}: ok, bit-identical; " + "; ".join(line))
+                    g = case(op, prob, ndev, dtype, stencil,
+                             f"{ndev} x {dims[0]}x{dims[1]}x{dims[2]} {stencil}pt {str(dtype)[6:]}")
+                    multi += int(dims == COLL_MULTI and g.items > g.blocks_per_rank)
     if not multi:
         raise AssertionError(f"{COLL_MULTI}: no rank count gave a rank more work items than blocks")
+    for dtype in (torch.float32, torch.float64):
+        for edge, ndev, dims, stencil, offsets in _coll_edge_cases(dtype):
+            op, prob = _coll_edge_problem(ndev, dims, stencil, dtype, offsets)
+            case(op, prob, ndev, dtype, stencil, f"{edge}: {ndev} x {dims[0]}x{dims[1]}x{dims[2]} {stencil}pt "
+                 f"{str(dtype)[6:]}")
     return stats
 
 
 # the slice's main path: (label, ranks, per-rank block); the reference's
 # headline unit, its weak-scaling protocol (64^3 per rank, BASELINE.md:19)
 # and its strong-scaling protocol (64x64x1024 global on 8 ranks, :20)
+# slice 10's: 4 x 100^3, the collective kernels with their state past the L2
+BIG_COLL_CELL = ("4 x 100^3", 4, (100, 100, 100))
 MAIN_CELLS = [("1 x 100^3", 1, (100, 100, 100))] + [
     (f"weak {n} x 64^3", n, (64, 64, 64)) for n in (1, 2, 4, 8)] + [
     ("strong 64x64x1024 on 8", 8, (64, 64, 128))]
@@ -1732,7 +1847,7 @@ def _f64_check(res, plain, method, what) -> str:
     return f"trace within {worst:.2e} of plain above {floor} of trace[0]; x {xerr:.2e}"
 
 
-def _main_path_slice4() -> None:
+def _main_path_slice4(cells=None, runs=None, f64=True) -> None:
     """make_distributed_cg at full width on every MAIN_CELLS cell, float32,
     max_iter 150, tolerance 0: collective (cg, cg1, pipecg; one launch of
     K15/K16 each), pallas_fused and stencil, against the single-device
@@ -1741,7 +1856,8 @@ def _main_path_slice4() -> None:
     plain versions' niters, except where one of the two stopped early on an
     exact 0 (the f32 cg1 recurrence residual flushes at an iteration that
     depends on the rounding: 143 against 149 at 64^3 on one H100 run), and
-    as _one_reduction_check and _f64_check hold them."""
+    as _one_reduction_check and _f64_check hold them. ``cells``, ``runs``
+    and ``f64`` narrow it (slice 10's path)."""
     from hpccg_tpu_torch import ProblemConfig, generate_problem, make_cg
     from hpccg_tpu_torch.ops.cuda import collective as col
     from hpccg_tpu_torch.parallel import generate_problem_sharded, make_distributed_cg
@@ -1756,10 +1872,10 @@ def _main_path_slice4() -> None:
 
     def one_launch(delta, method, what):
         kernel = METHOD_KERNEL[method]
-        if delta[kernel] != 1 or sum(delta.values()) != 1:
+        if delta[kernel] != 1 or _launch_sum(delta) != 1:
             raise AssertionError(f"{what}: expected one launch of {kernel}, got {delta}")
 
-    for label, ndev, dims in MAIN_CELLS:
+    for label, ndev, dims in cells or MAIN_CELLS:
         cfg = ProblemConfig(*dims, dtype=torch.float32)
         op = local_operator(cfg)
         mesh = _one_card(ndev)
@@ -1767,7 +1883,7 @@ def _main_path_slice4() -> None:
         gprob = generate_problem(ProblemConfig(dims[0], dims[1], dims[2] * ndev, dtype=torch.float32), "cuda")
         ref = make_cg(gprob.A, max_iter=150, tolerance=0.0, backend="stencil")(gprob.b, gprob.x0)
         ref_trace, ref_x = ref.trace.double().cpu(), ref.x
-        for backend, method in MAIN_RUNS:
+        for backend, method in runs or MAIN_RUNS:
             what = f"{label} {backend} {method}"
             res, delta = run(cfg, mesh, prob, backend, method)
             niters, x = int(res.niters), torch.cat(res.x)
@@ -1792,6 +1908,8 @@ def _main_path_slice4() -> None:
             elif any(delta.values()):
                 raise AssertionError(f"{what}: the stencil backend launched a kernel")
             say(f"[main] {what}: niters {niters} normr {float(res.normr):.6e}; {note}; launches {_launch_note(delta)}")
+        if not f64:
+            continue
         cfg64 = ProblemConfig(*dims, dtype=torch.float64)
         prob64 = generate_problem_sharded(cfg64, mesh)
         for method in ("cg1", "pipecg"):
@@ -1802,6 +1920,13 @@ def _main_path_slice4() -> None:
             one_launch(delta, method, what)
             say(f"[main] {what}: niters {int(res.niters)} normr {float(res.normr):.6e}; {note}; launches "
                 f"{_launch_note(delta)}")
+
+
+def _main_path_slice10() -> None:
+    """K15/K16 past the L2: make_distributed_cg on collective (cg, cg1,
+    pipecg; one launch each) at 4 x 100^3 float32 (80 MB of state), max_iter
+    150, held as _main_path_slice4 holds its cells."""
+    _main_path_slice4([BIG_COLL_CELL], [("collective", m) for m in ("cg", "cg1", "pipecg")], f64=False)
 
 
 def phase_golden_collective() -> None:
@@ -1841,7 +1966,9 @@ def phase_timing_collective(card: str, stats: dict) -> None:
     the single-device megakernel, and at 4 x 100^3 and 8 x 64^3 beside
     distributed pallas_fused. N ranks share one card here: these are no
     scaling numbers. Then K15 (cg) and K16 against their plain versions at
-    1 x 100^3, plain, kernel, kernel, plain."""
+    1 x 100^3 and at 4 x 100^3 (the kernels line's 4 x 100^3 rows, past
+    the L2, with their own check against the plain version: _coll_case),
+    plain, kernel, kernel, plain."""
     from hpccg_tpu_torch import ProblemConfig, generate_problem, make_cg
     from hpccg_tpu_torch.ops.cuda import collective as col
     from hpccg_tpu_torch.parallel import generate_problem_sharded, make_distributed_cg
@@ -1875,23 +2002,29 @@ def phase_timing_collective(card: str, stats: dict) -> None:
             t = slope(lambda k: make_cg(g.A, max_iter=k + 1, backend="megakernel")(g.b, g.x0))
             say(f"[timing] {tag} single-device megakernel (K5): {t:.2f} us/iter [{card}]")
     cfg = ProblemConfig(100, 100, 100, dtype=torch.float32)
-    op, prob = local_operator(cfg), generate_problem_sharded(cfg, _one_card(1))
-    for name, method in ((K15, "cg"), (K16, "pipecg")):
-        kern = _coll_kernel(method)
+    op = local_operator(cfg)
+    for ndev, rows in ((1, (K15, K16)), (4, (BIG15, BIG16))):
+        prob = generate_problem_sharded(cfg, _one_card(ndev))
+        for name, method in zip(rows, ("cg", "pipecg")):
+            kern = _coll_kernel(method)
+            if ndev > 1:  # the 4 x 100^3 rows' own check against the plain version
+                stats[name] = {"max_abs_err": _coll_case(op, prob, method, torch.float32, 27,
+                                                         f"{name} ({method})")[2]}
 
-        def plain(k):
-            col.solve_plain(op, prob.b, prob.x0, method=method, max_iter=k + 1)
+            def plain(k):
+                col.solve_plain(op, prob.b, prob.x0, method=method, max_iter=k + 1)
 
-        def kernel(k):
-            kern(op, prob.b, prob.x0, max_iter=k + 1)
+            def kernel(k):
+                kern(op, prob.b, prob.x0, max_iter=k + 1)
 
-        t_p1, t_k1, t_k2, t_p2 = (slope(f) for f in (plain, kernel, kernel, plain))
-        stats[name]["ms"], stats[name]["plain_ms"] = (t_k1 + t_k2) / 2e3, (t_p1 + t_p2) / 2e3
-        # one iteration: its state read and written once (cg: x, r, p; pipecg: x, r, w, p, s, z)
-        nvec = 6 if method == "cg" else 12
-        _model(stats[name], nvec * op.local_nrow * 4, 2 * op.nnz + 2 * nvec * op.local_nrow, 4)
-        say(f"[timing] {name} ({method}) at 1 x 100^3 f32: {stats[name]['ms'] * 1e3:.2f} us/iter vs plain "
-            f"{stats[name]['plain_ms'] * 1e3:.2f} [{card}]")
+            t_p1, t_k1, t_k2, t_p2 = (slope(f) for f in (plain, kernel, kernel, plain))
+            stats[name]["ms"], stats[name]["plain_ms"] = (t_k1 + t_k2) / 2e3, (t_p1 + t_p2) / 2e3
+            # one iteration: its state read and written once (cg: x, r, p; pipecg: x, r, w, p, s, z)
+            nvec = 6 if method == "cg" else 12
+            n = op.local_nrow * ndev
+            _model(stats[name], nvec * n * 4, 2 * op.nnz * ndev + 2 * nvec * n, 4)
+            say(f"[timing] {name} ({method}) at {ndev} x 100^3 f32: {stats[name]['ms'] * 1e3:.2f} us/iter vs plain "
+                f"{stats[name]['plain_ms'] * 1e3:.2f}, bound {_bound(stats[name])[0] * 1e3:.2f} [{card}]")
 
 
 # ------------------------------------------------------------ slice 5: distributed file mode
@@ -2711,8 +2844,9 @@ def phase_collective_bf16_kernels() -> dict:
     """K15/bf16 (cg, cg1) and K16/bf16 (pipecg) against their plain
     versions (the same split: bf16 vectors, float32 scalars) with every
     rank on cuda:0, as _bf16_held holds them, two launches bit-identical: at
-    1, 2, 4 and 8 ranks, per rank 33x17x9 (27- and 7-point), 64x48x13 and
-    COLL_MULTI, COLL_ITERS iterations (a solve stops at WS_TRACE's bf16
+    1, 2, 4 and 8 ranks, per rank 33x17x9 (27- and 7-point), 64x48x13,
+    128x64x16 and COLL_MULTI, and at the staged tile's edges and on b/x0
+    views at odd offsets (_coll_edge_cases), COLL_ITERS iterations (a solve stops at WS_TRACE's bf16
     floor, on a tolerance between two of the plain trace's entries, where
     the trace reaches it) and pipecg also PIPE_BF16_HEAD iterations; then
     pipecg at the main path's shapes (BF16_COLL_CELLS), PIPE_BF16_HEAD
@@ -2756,6 +2890,11 @@ def phase_collective_bf16_kernels() -> dict:
                 tag = f"{ndev} x {dims[0]}x{dims[1]}x{dims[2]} {stencil}pt bf16"
                 line = [held(op, prob, method, iters, tag) for method, iters in runs]
                 say(f"[collective-bf16] {tag}: ok, bit-identical; " + "; ".join(line))
+    for edge, ndev, dims, stencil, offsets in _coll_edge_cases(bf):
+        op, prob = _coll_edge_problem(ndev, dims, stencil, bf, offsets)
+        tag = f"{edge}: {ndev} x {dims[0]}x{dims[1]}x{dims[2]} {stencil}pt bf16"
+        line = [held(op, prob, method, iters, tag) + f" (access {col.launch.access})" for method, iters in runs]
+        say(f"[collective-bf16] {tag}: ok, bit-identical; " + "; ".join(line))
     for label, ndev, dims in BF16_COLL_CELLS:
         cfg = ProblemConfig(*dims, dtype=bf)
         op, prob = local_operator(cfg), generate_problem_sharded(cfg, _one_card(ndev))
@@ -2827,7 +2966,7 @@ def _main_path_slice7() -> None:
                                                              method=method)(prob.b, prob.x0))
             kernel = C16 if method == "pipecg" else C15
             # a bf16 launch counts on the wrapper's launches and launches_bf16
-            if delta[kernel] != 1 or delta[METHOD_KERNEL[method]] != 1 or sum(delta.values()) != 2:
+            if delta[kernel] != 1 or delta[METHOD_KERNEL[method]] != 1 or _launch_sum(delta) != 2:
                 raise AssertionError(f"{what}: expected one launch of {kernel}, got {delta}")
             plain = col.solve_plain(op, prob.b, prob.x0, method=method, max_iter=iters)
             if int(res.niters) != iters - 1:

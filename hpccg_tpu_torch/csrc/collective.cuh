@@ -1,6 +1,9 @@
-// The protocol of the collective whole-solve kernels and the two CG drivers
-// they share: K15/K16 (collective.cu, the z-stacked stencil) and K17
-// (collective_dia.cu, a banded explicit matrix).
+// The protocol of the collective whole-solve kernels K15/K16 (collective.cu,
+// the z-stacked stencil) and K17 (collective_dia.cu, a banded explicit
+// matrix), and K17's two CG drivers. K15/K16 have drivers of their own on
+// the staged tile, with per-plane dot products (collective.cu: their
+// allreduce is Slab::reduce_start/reduce_finish, this protocol with the
+// rank's row formed from per-plane partials).
 //
 // Ranks. The mesh is single-controller (parallel/mesh.py): every rank of
 // the launch lives on this device. The grid is ndev x bpr blocks, every
@@ -21,9 +24,8 @@
 //     arrival counter of that phase; a reader acquire-waits for bpr
 //     arrivals per exchange from each neighbour. Each rank has up to five
 //     phases of (from below, from above) landing buffers: the cg and cg1
-//     drivers use phase 0 for the init exchange and 1 for the loop; K16
-//     phases 0-2 for its three init exchanges and 3/4 by iteration parity
-//     in the loop;
+//     drivers here use phase 0 for the init exchange and 1 for the loop
+//     (K15/K16's use of them: collective.cu);
 //   - allreduce: each block writes its partials, release-increments its
 //     rank's counter; block 0 of the rank waits for all, sums them in a
 //     fixed tree, writes the rank's row into the slot's table of every
@@ -45,17 +47,19 @@
 // the other blocks see the word and leave too. The wrappers
 // (ops/cuda/collective.py) raise RuntimeError with it.
 //
-// A view of a rank (a struct deriving from Comm) adds what depends on the
-// operator: push(ph, i, v), which sends real element i of a vector being
-// produced to the neighbours' landing buffers of phase ph, and apply(kind,
-// ph, emit), which computes A v over the rank's rows with phase ph's
-// landing buffers as the halo and calls emit(i, v[i], (A v)[i]).
+// A view of a rank for the drivers here (a struct deriving from Comm, K17's
+// DiaRank) adds what depends on the operator: push(ph, i, v), which sends
+// real element i of a vector being produced to the neighbours' landing
+// buffers of phase ph, and apply(kind, ph, emit), which computes A v over
+// the rank's rows with phase ph's landing buffers as the halo and calls
+// emit(i, v[i], (A v)[i]).
 //
 // Storage and compute (storage.cuh): the vectors and the landing buffers
 // are T, the arithmetic, the partials, the allreduce table, the scalars, the
-// trace and the stats S. T = S for float and double; bfloat16 vectors
-// (K15/K16 only) compute in float. A value is rounded to T where it is
-// stored, and the pass that stores it goes on with the stored value (a
+// trace and the stats S (K15/K16's per-plane partials: double). T = S for
+// float and double; bfloat16 vectors (K15/K16 only) compute in float. A
+// value is rounded to T where it is stored, and the pass that stores it
+// goes on with the stored value (a
 // pushed halo row, r in r.r, p in x += alpha p), so that a plain torch
 // recurrence that stores every vector rounds at the same places; the dots
 // of an apply take the unrounded S result (p.Ap, r.u, w.r), as K5 does.
@@ -74,8 +78,8 @@ namespace coll {
 
 enum Method { CG = 0, CG1 = 1, PIPECG = 2 };
 // rows of the pointer table (NKIND x ndev addresses); the same numbers as
-// ops/cuda/collective.py. P_DATA is K17's diagonal data.
-enum { P_B, P_X0, P_X, P_R, P_P, P_S, P_U, P_Z, P_Q, P_H, P_PARTS, P_TABLE, P_CTR, P_DATA, NKIND };
+// ops/cuda/collective.py. P_DATA is K17's diagonal data, P_V K16's second w.
+enum { P_B, P_X0, P_X, P_R, P_P, P_S, P_U, P_Z, P_Q, P_H, P_PARTS, P_TABLE, P_CTR, P_DATA, P_V, NKIND };
 // a rank's counters: halo arrivals [phase][from below, from above], the
 // rank barrier, the partials' arrivals, the two allreduce slots
 enum { C_HALO = 0, C_BAR = 10, C_RANK = 11, C_TABLE = 12, NCTR = 16 };
@@ -101,17 +105,32 @@ __device__ __forceinline__ unsigned long long globaltimer() {
   return t;
 }
 
-using SysAtomic = cuda::atomic_ref<unsigned, cuda::thread_scope_system>;
+// The counters' atomics and fences have the scope of the memory the ranks
+// share: the system (peer cards; the default, K17's) or the device (every
+// rank of the launch on one card: K15/K16).
+template <cuda::thread_scope Scope>
+using ScopedAtomic = cuda::atomic_ref<unsigned, Scope>;
 
+template <cuda::thread_scope Scope = cuda::thread_scope_system>
 __device__ __forceinline__ void release_add(unsigned* c) {
-  SysAtomic(*c).fetch_add(1u, cuda::memory_order_release);
+  ScopedAtomic<Scope>(*c).fetch_add(1u, cuda::memory_order_release);
+}
+
+template <cuda::thread_scope Scope>
+__device__ __forceinline__ void scope_fence() {
+  if constexpr (Scope == cuda::thread_scope_system) {
+    __threadfence_system();
+  } else {
+    __threadfence();
+  }
 }
 
 __host__ __device__ __forceinline__ int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 // One block's view of its rank and the protocol; NT threads per block, n
-// real elements per rank; vectors stored in T, computed in S.
-template <typename T, typename S, int NT>
+// real elements per rank; vectors stored in T, computed in S; the counters
+// at memory scope Scope.
+template <typename T, typename S, int NT, cuda::thread_scope Scope = cuda::thread_scope_system>
 struct Comm {
   using Store = T;
   using Scalar = S;
@@ -155,7 +174,7 @@ struct Comm {
       cuda::atomic_ref<int, cuda::thread_scope_system> e(P.err[0]);
       int res = 1;
       const unsigned long long t0 = globaltimer();
-      while (SysAtomic(*c).load(cuda::memory_order_acquire) < target) {
+      while (ScopedAtomic<Scope>(*c).load(cuda::memory_order_acquire) < target) {
         if (e.load(cuda::memory_order_relaxed) != 0) {
           res = 0;
           break;
@@ -183,14 +202,7 @@ struct Comm {
   // Every thread's writes of this block are done: thread 0 publishes them.
   __device__ void publish() {
     __syncthreads();
-    if (tid == 0) __threadfence_system();
-  }
-
-  // Barrier of the rank's blocks (what one block wrote, the others read).
-  __device__ bool rank_barrier() {
-    publish();
-    if (tid == 0) release_add(ctr(rank) + C_BAR);
-    return wait(ctr(rank) + C_BAR, ++bar_epoch * bpr, SITE_BAR);
+    if (tid == 0) scope_fence<Scope>();
   }
 
   // Halo exchange of phase ph after the pass that pushed its rows: the
@@ -198,9 +210,9 @@ struct Comm {
   __device__ bool exchange(int ph) {
     publish();
     if (tid == 0) {
-      release_add(ctr(rank) + C_BAR);
-      if (rank > 0) release_add(ctr(rank - 1) + C_HALO + 2 * ph + 1);  // I am its above
-      if (rank < ndev - 1) release_add(ctr(rank + 1) + C_HALO + 2 * ph);
+      release_add<Scope>(ctr(rank) + C_BAR);
+      if (rank > 0) release_add<Scope>(ctr(rank - 1) + C_HALO + 2 * ph + 1);  // I am its above
+      if (rank < ndev - 1) release_add<Scope>(ctr(rank + 1) + C_HALO + 2 * ph);
     }
     if (!wait(ctr(rank) + C_BAR, ++bar_epoch * bpr, SITE_BAR)) return false;
     const unsigned target = ++halo_epoch[ph] * bpr;
@@ -229,7 +241,7 @@ struct Comm {
       parts[2 * lb + 1] = sb;
     }
     publish();
-    if (tid == 0) release_add(ctr(rank) + C_RANK);
+    if (tid == 0) release_add<Scope>(ctr(rank) + C_RANK);
     ++nred;
     pending = ++uses[slot] * ndev;
     if (lb != 0) return true;
@@ -247,8 +259,8 @@ struct Comm {
         row[0] = pa;
         row[1] = pb;
       }
-      __threadfence_system();
-      for (int peer = 0; peer < ndev; ++peer) release_add(ctr(peer) + C_TABLE + slot);
+      scope_fence<Scope>();
+      for (int peer = 0; peer < ndev; ++peer) release_add<Scope>(ctr(peer) + C_TABLE + slot);
     }
     return true;
   }

@@ -73,10 +73,10 @@
 //     contraction), as the plain torch version computes it: p' matches it
 //     bit for bit in every dtype. The 27-point sum keeps the JAX package's
 //     association ((left + centre) + right per row, then rows, then
-//     planes), as the collective kernels' march_tile (stencil_tile.cuh).
+//     planes).
 //
 // The staging, the sums and the march are stencil_stage.cuh's, which the
-// whole-solve kernels (wholesolve.cu) share. TY, ZC_MAX, NSTAGE and
+// whole-solve kernels (wholesolve.cu, collective.cu) share. TY, ZC_MAX, NSTAGE and
 // MIN_BLOCKS are compile-time constants, chosen by measurement on an H100
 // (scripts/stencil_tile_sweep.py, PERF.md); each can be set with a -D
 // define of its HPCCG_STENCIL_* name.

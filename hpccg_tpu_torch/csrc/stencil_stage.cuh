@@ -1,6 +1,7 @@
 // The staged-plane stencil tile of the Hopper kernels: the per-iteration
-// stencil kernels K1-K3 and K7 (stencil.cu) and the whole-solve kernels K5
-// and K6 (wholesolve.cu) march it.
+// stencil kernels K1-K3 and K7 (stencil.cu), the whole-solve kernels K5
+// and K6 (wholesolve.cu) and the collective whole solves K15 and K16
+// (collective.cu) march it.
 //
 // A is the implicit generated-problem operator: A u = 28 u - S(u), where S
 // is the boundary-clipped 27-point (or 7-point) neighbour sum including the

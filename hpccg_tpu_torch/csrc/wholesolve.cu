@@ -38,9 +38,9 @@
 //
 // What bounds it on this card. At 256^3 f32 a pass over one vector is
 // 67 MB: K6's 8 passes are 537 MB per iteration, ~160 us at 3.35 TB/s,
-// K5's 10 passes ~200 us; bf16 halves both. Its first form marched the
-// tile of stencil_tile.cuh (one 4-byte load per thread and staged element,
-// one plane in flight, two barriers a plane) and was bound by loads in
+// K5's 10 passes ~200 us; bf16 halves both. Its first form marched a tile
+// of one 4-byte load per thread and staged element, one plane in flight
+// and two barriers a plane, and was bound by loads in
 // flight: half the bytes bought bf16 K5 only 10%. At 100^3 the state
 // (5 vectors, 20 MB in f32) fits the 50 MB L2; the two grid syncs with
 // their partial sums take about a quarter of an iteration there (PERF.md).

@@ -61,12 +61,11 @@ _SIGNATURES = {
     "hpccg_ell_f32": [_P, _P, _I, _P, _P, _LL, _P],
     "hpccg_ell_f64": [_P, _P, _I, _P, _P, _LL, _P],
     "hpccg_ell_bf16": [_P, _P, _I, _P, _P, _LL, _P],
-    "hpccg_collective_resident_blocks": [_I] * 3,
-    "hpccg_collective_work_items": [_I] * 3,
+    "hpccg_collective_geometry": [_I] * 7 + [_P],
     "hpccg_collective_layout": [_I],
-    "hpccg_collective_f32": [_P] * 4 + [_I] * 8 + [ctypes.c_double, _LL, _P],
-    "hpccg_collective_f64": [_P] * 4 + [_I] * 8 + [ctypes.c_double, _LL, _P],
-    "hpccg_collective_bf16": [_P] * 4 + [_I] * 8 + [ctypes.c_double, _LL, _P],
+    "hpccg_collective_f32": [_P] * 4 + [_I] * 4 + [_LL, _I, _I, _LL] + [_I] * 3 + [ctypes.c_double, _LL, _P],
+    "hpccg_collective_f64": [_P] * 4 + [_I] * 4 + [_LL, _I, _I, _LL] + [_I] * 3 + [ctypes.c_double, _LL, _P],
+    "hpccg_collective_bf16": [_P] * 4 + [_I] * 4 + [_LL, _I, _I, _LL] + [_I] * 3 + [ctypes.c_double, _LL, _P],
     "hpccg_collective_dia_resident_blocks": [_I, _I],
     "hpccg_collective_dia_block_rows": [],
     "hpccg_collective_dia_f32": [_P] * 5 + [_I, _I, _LL] + [_I] * 5 + [ctypes.c_double, _LL, _P],

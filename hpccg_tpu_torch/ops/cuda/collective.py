@@ -37,13 +37,16 @@ and their vectors, alpha/beta and allreduce rows stay in bf16,
 vectors and the landing planes in bf16 and keeps the partials, the allreduce
 table, the scalars, the trace and the stats in float32
 (``config.scalar_dtype``), as K1-K6 do; its plain version
-(``_solve_plain_bf16``) rounds at the kernel's places. K17 takes float32 and
+(``_solve_plain_bf16``) rounds at the kernel's places and sums the dots as
+the kernel does (``rank_dot``: each rank's ``wholesolve.plane_dot``, the
+ranks in rank order). K17 takes float32 and
 float64 only, as the JAX package's K17 is float32 only
 (``hpccg_tpu/parallel/cg.py:1381-1385``): bfloat16 raises ValueError.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
@@ -52,14 +55,19 @@ from hpccg_tpu_torch.config import scalar_dtype
 from hpccg_tpu_torch.operators import DiaRows, StencilOperator, band
 from hpccg_tpu_torch.ops.cuda.build import check_launch, load_library
 from hpccg_tpu_torch.ops.cuda.dia import MAX_DIAGS
+from hpccg_tpu_torch.ops.cuda.wholesolve import plane_dot
 
 METHODS = {"cg": 0, "cg1": 1, "pipecg": 2}
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}  # the C entry points' dtype argument
 # rows of the kernels' pointer table; the same order as csrc/collective.cuh
-(P_B, P_X0, P_X, P_R, P_P, P_S, P_U, P_Z, P_Q, P_H, P_PARTS, P_TABLE, P_CTR, P_DATA) = range(14)
-NKIND, NCTR = 14, 16
+(P_B, P_X0, P_X, P_R, P_P, P_S, P_U, P_Z, P_Q, P_H, P_PARTS, P_TABLE, P_CTR, P_DATA, P_V) = range(15)
+NKIND, NCTR = 15, 16
+# the state vectors of each method (K16 keeps w in P_U and P_V by iteration
+# parity)
 VECTORS = {"cg": (P_X, P_R, P_P, P_S), "cg1": (P_X, P_R, P_P, P_S, P_U),
-           "pipecg": (P_X, P_R, P_P, P_S, P_U, P_Z, P_Q)}
+           "pipecg": (P_X, P_R, P_P, P_S, P_U, P_Z, P_Q, P_V)}
+# the landing buffers of a K15/K16 rank: (phase, from below / from above) planes
+PHASES = 5
 # how long a spin-wait in the kernel may last before it gives up: far above
 # any wait of a healthy solve, far below a hung chip_smoke
 WAIT_NS = 5_000_000_000
@@ -117,7 +125,7 @@ def _solve_plain_bf16(op: StencilOperator, bs, x0s, *, method: str, max_iter: in
     scalars and the trace in float32. A value is rounded to bf16 where the
     kernel stores it and used as stored from then on; the dots of an apply
     (p.Ap, r.u, and w.r at pipecg's init) take its unrounded f32 result.
-    The ranks' dots are summed in rank order; the loop test is read back
+    The dots are the kernel's (``rank_dot``); the loop test is read back
     every iteration. Returns a CGResult with sharded bf16 x."""
     from hpccg_tpu_torch.parallel.halo import stencil_matvec_halo
     from hpccg_tpu_torch.solver import CGResult
@@ -131,10 +139,7 @@ def _solve_plain_bf16(op: StencilOperator, bs, x0s, *, method: str, max_iter: in
         return stencil_matvec_halo(op32, tuple(v.float() for v in vs))
 
     def dot(us, vs):
-        total = torch.zeros((), dtype=f32, device=dev)
-        for u, v in zip(us, vs):
-            total = total + torch.dot(u.float(), v.float()).to(dev)
-        return total
+        return rank_dot(us, vs, op.nz, f32)[0]
 
     def store(vs):
         return tuple(v.to(bf16) for v in vs)
@@ -201,18 +206,61 @@ def _solve_plain_bf16(op: StencilOperator, bs, x0s, *, method: str, max_iter: in
                     rtrans=gamma_top, trace=trace)
 
 
-def work_items(op: StencilOperator) -> int:
-    """(x-tile, y-tile, z-chunk) work items of one rank's block; the rank's
-    blocks take them in turns."""
-    return load_library().hpccg_collective_work_items(op.nx, op.ny, op.nz)
+def rank_dot(us, vs, nz: int, sdt):
+    """The ranks' dot u . v as K15/K16 sum it, in ``sdt``: each rank's
+    ``plane_dot`` (its nz z-planes' products added in float64 and rounded
+    once, the plane sums added in sdt in z order), the ranks' values added
+    in sdt in rank order. Returns a tensor of shape (1,) on the first
+    shard's device."""
+    total = None
+    for u, v in zip(us, vs):
+        part = plane_dot(u, v, nz, sdt).to(us[0].device)
+        total = part if total is None else total + part
+    return total
+
+
+@dataclasses.dataclass(frozen=True)
+class CollectiveGeometry:
+    """K15/K16's cooperative grid for a launch: the tile (x points, y rows),
+    the z-planes of a work item, and each rank's work items and blocks."""
+
+    tile_x: int
+    tile_y: int
+    z_chunk: int
+    items: int
+    blocks_per_rank: int
+
+
+def geometry(op: StencilOperator, ndev: int, dtype, method: str) -> CollectiveGeometry:
+    """The grid of a launch of ``ndev`` ranks of op's local grid in
+    ``dtype`` on the current CUDA device: every block resident at once
+    (occupancy x SMs, shared by the ranks), a rank's blocks capped by its
+    (x-tile, y-tile, z-chunk) work items, which they take in turns. A mesh
+    larger than the resident grid raises (nothing falls back)."""
+    lib = _library()
+    out = (ctypes.c_int * 5)()
+    err = lib.hpccg_collective_geometry(op.nx, op.ny, op.nz, DTYPE_CODES[dtype], op.stencil.value, METHODS[method],
+                                        ndev, ctypes.addressof(out))
+    if err == 720:  # cudaErrorCooperativeLaunchTooLarge
+        raise ValueError(f"a mesh of {ndev} ranks needs at least {ndev} resident blocks of the collective kernel")
+    if err != 0:
+        raise RuntimeError(f"collective kernel: no cooperative grid (CUDA error {err})")
+    return CollectiveGeometry(*out)
+
+
+def _library():
+    """The kernel library, once its counter and pointer layout is checked
+    against this module's."""
+    lib = load_library()
+    if (lib.hpccg_collective_layout(0), lib.hpccg_collective_layout(1)) != (NCTR, NKIND):
+        raise RuntimeError("collective kernel: the library's counter / pointer layout differs from this module's")
+    return lib
 
 
 def _resident(resident: int, ndev: int, what: str) -> int:
     """The resident blocks a query returned, or raise: no cooperative grid,
     or fewer blocks than ranks (nothing falls back)."""
-    lib = load_library()
-    if (lib.hpccg_collective_layout(0), lib.hpccg_collective_layout(1)) != (NCTR, NKIND):
-        raise RuntimeError("collective kernel: the library's counter / pointer layout differs from this module's")
+    _library()
     if resident <= 0:
         raise RuntimeError(f"{what}: no cooperative grid (CUDA error {-resident})")
     if resident < ndev:
@@ -221,13 +269,19 @@ def _resident(resident: int, ndev: int, what: str) -> int:
     return resident
 
 
-def blocks_per_rank(op: StencilOperator, ndev: int, dtype, method: str) -> int:
-    """Blocks of each rank in the launch: the rank's work items, capped by
-    the card's resident blocks shared among ``ndev`` ranks. A mesh larger
-    than the resident grid raises (nothing falls back)."""
-    resident = load_library().hpccg_collective_resident_blocks(DTYPE_CODES[dtype], op.stencil.value,
-                                                               METHODS[method])
-    return min(work_items(op), _resident(resident, ndev, "collective kernel") // ndev)
+def _pitch(n: int, dtype) -> int:
+    """n elements of ``dtype`` rounded up to a multiple of 16 bytes."""
+    per = 16 // torch.empty((), dtype=dtype).element_size()
+    return -(-n // per) * per
+
+
+def access_bytes(nx: int, esize: int, ptrs) -> int:
+    """The widest access of 16, 8, 4 or 2 bytes that divides the row pitch
+    nx * esize and every pointer (``stencil_stage.cuh:access_bytes``)."""
+    m = 16 | nx * esize
+    for p in ptrs:
+        m |= p
+    return m & -m
 
 
 class _Scratch:
@@ -235,15 +289,19 @@ class _Scratch:
     landing buffers, the partials, the allreduce tables, the counters, the
     trace, the stats and the error word, and the pointer table that names
     them per rank. The vectors and landing buffers are in the shards'
-    dtype, the rest in its scalar dtype (float32 for bfloat16)."""
+    dtype, each rank's vector 16-byte aligned; the partials ``parts``
+    (shape per rank, dtype; default ``2 * bpr`` in the scalar dtype, K17's
+    block partials) and the rest in the scalar dtype (float32 for
+    bfloat16)."""
 
-    def __init__(self, bs, x0s, kinds, landing_shape, bpr: int, max_iter: int, data=None):
+    def __init__(self, bs, x0s, kinds, landing_shape, bpr: int, max_iter: int, data=None, parts=None):
         dev, dtype, ndev, n = bs[0].device, bs[0].dtype, len(bs), bs[0].numel()
         sdt = scalar_dtype(dtype)
-        self.state = torch.zeros((len(kinds), ndev, n), dtype=dtype, device=dev)
+        self.state = torch.zeros((len(kinds), ndev, _pitch(n, dtype)), dtype=dtype, device=dev)[:, :, :n]
         # the landing buffers a rank's neighbours push into; zero at the global ends
         self.landing = torch.zeros((ndev, *landing_shape), dtype=dtype, device=dev)
-        self.parts = torch.empty((ndev, 2 * bpr), dtype=sdt, device=dev)
+        shape, pdt = parts if parts is not None else ((2 * bpr,), sdt)
+        self.parts = torch.empty((ndev, *shape), dtype=pdt, device=dev)
         self.table = torch.zeros((ndev, 2, ndev, 2), dtype=sdt, device=dev)
         self.ctr = torch.zeros((ndev, NCTR), dtype=torch.int32, device=dev)
         self.trace = torch.full((max(max_iter, 1),), float("nan"), dtype=sdt, device=dev)
@@ -282,23 +340,39 @@ def launch(op: StencilOperator, bs, x0s, *, method: str, max_iter: int, toleranc
            wait_ns: int = WAIT_NS):
     """One cooperative launch of the collective kernel for every rank, on
     the shards' card and the current stream; synchronises to read the
-    kernel's error word and raises RuntimeError if a wait gave up. Returns
-    a CGResult."""
+    kernel's error word and raises RuntimeError if a wait gave up. Records
+    the access widths in bytes of the march (state vectors and landing
+    planes; with b and x0 at the init) in ``launch.access``. Returns a
+    CGResult."""
     dev = bs[0].device
     dtype = bs[0].dtype
     ndev = len(bs)
-    bpr = blocks_per_rank(op, ndev, dtype, method)
-    sc = _Scratch(bs, x0s, VECTORS[method], (5, 2, op.ny, op.nx), bpr, max_iter)
+    with torch.cuda.device(dev):
+        g = geometry(op, ndev, dtype, method)
+    tiles = -(-op.nx // g.tile_x) * -(-op.ny // g.tile_y)
+    plane = _pitch(op.nx * op.ny, dtype)
+    # per rank: two rounds (by parity) of two dots of (tile, plane) partials
+    sc = _Scratch(bs, x0s, VECTORS[method], (PHASES * 2 * plane,), g.blocks_per_rank, max_iter,
+                  parts=((4 * tiles * op.nz,), torch.float64))
+    esize = bs[0].element_size()
+    # every state vector and landing plane lies a multiple of 16 bytes from these
+    ptrs = [sc.state.data_ptr(), sc.landing.data_ptr()]
+    access = access_bytes(op.nx, esize, ptrs)
+    init_access = access_bytes(op.nx, esize, ptrs + [v.data_ptr() for v in bs + x0s])
+    launch.access = (access, init_access)
     lib = load_library()
     fn = {torch.float32: lib.hpccg_collective_f32, torch.float64: lib.hpccg_collective_f64,
           torch.bfloat16: lib.hpccg_collective_bf16}[dtype]
     # the C entry points launch on the current device, which must be the stream's
     with torch.cuda.device(dev):
-        code = fn(sc.ptrs.data_ptr(), sc.trace.data_ptr(), sc.stats.data_ptr(), sc.err.data_ptr(), ndev, bpr, op.nx,
-                  op.ny, op.nz, op.stencil.value, METHODS[method], max_iter, float(tolerance), int(wait_ns),
-                  torch.cuda.current_stream(dev).cuda_stream)
+        code = fn(sc.ptrs.data_ptr(), sc.trace.data_ptr(), sc.stats.data_ptr(), sc.err.data_ptr(), ndev, op.nx,
+                  op.ny, op.nz, plane, access, init_access, sc.parts[0].numel(), op.stencil.value, METHODS[method],
+                  max_iter, float(tolerance), int(wait_ns), torch.cuda.current_stream(dev).cuda_stream)
     check_launch(code, "collective kernel (cooperative launch)")
-    return sc.result(wait_ns, f"{ndev} ranks x {bpr} blocks")
+    return sc.result(wait_ns, f"{ndev} ranks x {g.blocks_per_rank} blocks")
+
+
+launch.access = None
 
 
 def _solve(wrapper, op, bs, x0s, method, max_iter, tolerance):

@@ -34,7 +34,9 @@ from hpccg_tpu_torch import ProblemConfig  # noqa: E402
 from hpccg_tpu_torch.convert import shards_to_numpy  # noqa: E402
 from hpccg_tpu_torch.operators import StencilOperator  # noqa: E402
 from hpccg_tpu_torch.ops.cuda import collective as col  # noqa: E402
+from hpccg_tpu_torch.ops.cuda.wholesolve import plane_dot  # noqa: E402
 from hpccg_tpu_torch.parallel import generate_problem_sharded, make_distributed_cg, make_mesh  # noqa: E402
+from hpccg_tpu_torch.parallel.halo import stencil_matvec_halo  # noqa: E402
 
 TRACE_RTOL, TRACE_FLOOR, X_ATOL = 0.15, 0.05, 0.08
 PIPECG_HEAD = 4  # trace entries k = 0..3
@@ -107,3 +109,35 @@ def test_bf16_split_rounds_where_the_kernel_stores(method):
     # trace[0] sums the bf16-rounded r = b - A x0: exact here (integer values)
     assert float(res.trace[0]) == float(f32.trace[0])
     np.testing.assert_allclose(res.trace[:4].numpy(), f32.trace[:4].numpy(), rtol=2e-2)
+
+
+@pytest.mark.parametrize("method", ["cg", "cg1", "pipecg"])
+def test_bf16_plain_dots_are_plane_dots_in_rank_order(method, monkeypatch):
+    """The plain bf16 version sums every dot as K15/K16 do (rank_dot): each
+    rank's wholesolve.plane_dot (a z-plane's products added in float64 and
+    rounded to float32 once, the plane sums added in float32 in z order),
+    the ranks' values added in float32 in rank order. Each of its dots on 4
+    ranks is that fold, and trace[0] is the root of r.r for r = b - A x0
+    rounded to bf16."""
+    dims, ndev, iters = (6, 5, 4), 4, 10
+    real, seen = col.rank_dot, []
+
+    def fold(us, vs, nz, sdt):
+        got = real(us, vs, nz, sdt)
+        want = None
+        for u, v in zip(us, vs):
+            part = plane_dot(u, v, nz, sdt)
+            want = part if want is None else want + part
+        assert nz == dims[2] and sdt == torch.float32 and len(us) == ndev
+        assert torch.equal(got, want)
+        seen.append(got)
+        return got
+
+    monkeypatch.setattr(col, "rank_dot", fold)
+    res = _port(dims, ndev, method, iters)
+    assert int(res.niters) == iters - 1 and len(seen) >= 2 * (iters - 1)
+    prob = generate_problem_sharded(ProblemConfig(*dims, dtype=torch.bfloat16), make_mesh(ndev, devices=["cpu"] * ndev))
+    op32 = StencilOperator(*dims, dtype=torch.float32)
+    r = tuple((b.float() - y).to(torch.bfloat16)
+              for b, y in zip(prob.b, stencil_matvec_halo(op32, tuple(x.float() for x in prob.x0))))
+    assert float(res.trace[0]) == float(torch.sqrt(real(r, r, dims[2], torch.float32)[0]))
