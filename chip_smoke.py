@@ -35,8 +35,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    phase_collective_bf16_kernels); then K17 (cg, cg1) against its plain
    version with 1, 2, 4, 6 and 8 ranks on the card, float32 and float64,
    on symmetric bands: scattered within +-200 at 2048 and 100000 rows per
-   rank, the diagonal alone, a band as wide as the shard
-   (phase_collective_dia_kernels); then K1-K4's bf16 instances against
+   rank, the diagonal alone, a band as wide as the shard, then at the edges
+   of its tile (one row below, at and above it; rows per rank not a
+   multiple of a thread's 16 bytes; b/x0 views at odd offsets; 1101
+   diagonals, past the offsets kept in shared memory), and its apply bit
+   for bit against DiaRows.matvec in every case and on the main path's
+   128^3 matrix (phase_collective_dia_kernels); then K1-K4's bf16 instances against
    theirs at the same shapes and at 256^3, 27- and 7-point, with and
    without halo planes (vectors within 4 bf16 ulps of max|y|, partials
    1e-3, p', x', r' bit for bit, repeats bit-identical;
@@ -122,8 +126,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    scaling numbers) and K15/K16 against their plain versions at 1 x 100^3
    and 4 x 100^3; at 4 x
    128^3/4 float32 DIA (legs of 17 and 145) K17 cg and cg1, dia-halo, the
-   single-device DIA solve, K17 against its plain version and the busy
-   share of one 50-iteration K17 solve. Nothing is asserted on times.
+   single-device DIA solve, K17 against its plain version (float32 and
+   float64) and the busy share of one 50-iteration K17 solve. Nothing is
+   asserted on times.
 
 The kernels' JSON line gives, for every kernel: its launches on its main
 path, max|kernel - plain|, its device ms and its plain version's (per
@@ -135,7 +140,8 @@ torch.add and torch.mul for the probes; null elsewhere). The bf16 rows
 (K1/bf16-K4/bf16) are timed at 256^3, the probes at 1 GiB per array; K3
 and K4 float32 have a second row at 256^3, past the L2, K5 and K6 a
 second and a third, at 256^3 in float32 and bfloat16, and K15 and K16 a
-second, at 4 x 100^3 in float32.
+second, at 4 x 100^3 in float32; K17 has a second, its float64 instance
+(launches counted on slice 5's main path).
 
 Each phase prints its seconds. The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -211,6 +217,8 @@ KERNELS = {
                                                         "hpccg_tpu/ops/pallas/collective_kernel.py:329"),
     "K16 pipelined collective whole solve, 4 x 100^3": ("hpccg_tpu_torch/csrc/collective.cu",
                                                         "hpccg_tpu/ops/pallas/collective_kernel.py:596"),
+    "K17 collective DIA whole solve (cg, cg1), f64": ("hpccg_tpu_torch/csrc/collective_dia.cu",
+                                                      "hpccg_tpu/ops/pallas/collective_kernel.py:906"),
 }
 SLICE1 = list(KERNELS)[:5]  # the kernels of slice 1's main path
 SLICE2 = list(KERNELS)[5:8]
@@ -221,7 +229,8 @@ SLICE6 = list(KERNELS)[17:23]
 SLICE7 = list(KERNELS)[23:28]
 SLICE8 = list(KERNELS)[28:30]
 SLICE9 = list(KERNELS)[30:34]
-SLICE10 = list(KERNELS)[34:]
+SLICE10 = list(KERNELS)[34:36]
+SLICE11 = list(KERNELS)[36:]
 K5, K6, K7 = SLICE2
 K9, K10, K11, K12, K13, K14 = SLICE3
 K15, K16 = SLICE4
@@ -231,6 +240,7 @@ C15, C16, D9, D9W, E11 = SLICE7
 BIG3, BIG4 = SLICE8
 BIG5, BIG6, BIG5B, BIG6B = SLICE9
 BIG15, BIG16 = SLICE10
+(K17D,) = SLICE11
 WIDE = [K13, K14]  # counted on the wide-scatter solve
 # tolerances, kernel vs plain on the same inputs: the sums run in another
 # order (the xy-sums associate like the plain version, but the compiler may
@@ -841,13 +851,16 @@ def _counters():
                  (mk.cg_solve_mega, "launches_bf16"), (sk.cg_solve_stream, "launches_bf16")]
     # slice 10's rows are K15/K16 at 4 x 100^3: their own main path's count
     counters += [(col.cg_collective, "launches"), (col.cg_collective_pipelined, "launches")]
+    # slice 11's row is K17's float64 instance, counted apart as well
+    counters += [(col.cg_collective_dia, "launches_f64")]
     return dict(zip(KERNELS, counters))
 
 
 def _launch_sum(delta) -> int:
     """The launches in a count delta, each launch once (slice 10's rows
-    read the counters of K15 and K16)."""
-    return sum(d for n, d in delta.items() if n not in SLICE10)
+    read the counters of K15 and K16, slice 11's the float64 launches of
+    K17)."""
+    return sum(d for n, d in delta.items() if n not in SLICE10 + SLICE11)
 
 
 def _counts() -> dict:
@@ -1329,20 +1342,20 @@ def phase_main_path() -> dict:
     100^3 collective solves, each with its own counts; the launches reported
     for each kernel are those of its own run. Slice 9's kernels (K5/K6 at
     256^3, float32 and bfloat16) run on slice 2's path and are read from its
-    counts."""
+    counts, slice 11's (K17 in float64) on slice 5's."""
     first = _drive(_main_path_slice1, SLICE1)
     second = _drive(_main_path_slice2, SLICE2 + SLICE9)
     third = _drive(_main_path_slice3, [K9, K10, K11, K12])
     wide = _drive(_main_path_wide_scatter, WIDE)
     fourth = _drive(_main_path_slice4, SLICE4)
-    fifth = _drive(_main_path_slice5, SLICE5)
+    fifth = _drive(_main_path_slice5, SLICE5 + SLICE11)
     sixth = _drive(_main_path_slice6, SLICE6)
     seventh = _drive(_main_path_slice7, SLICE7)
     eighth = _drive(_main_path_slice8, SLICE8)
     tenth = _drive(_main_path_slice10, SLICE10)
     runs = [(SLICE1, first), (SLICE2, second), ([K9, K10, K11, K12], third), (WIDE, wide), (SLICE4, fourth),
             (SLICE5, fifth), (SLICE6, sixth), (SLICE7, seventh), (SLICE8, eighth), (SLICE9, second),
-            (SLICE10, tenth)]
+            (SLICE10, tenth), (SLICE11, fifth)]
     return {n: counts[n] for names, counts in runs for n in names}
 
 
@@ -1572,6 +1585,10 @@ COLL_ITERS = 30
 # part faster than cg's. Readings over this phase's cases on an H100
 # (PERF.md): f32 trace 2.8e-3 above 1e-4 of trace[0], x 8.7e-5; f64
 # trace 1.7e-9 above 1e-9, x 1.6e-13.
+# Near that floor f32 pipecg parts with the dots' order alone: at 2 x
+# 128x512x16 two plain versions part by 1.03e-2 on an H100
+# (scripts/pipecg_f32_sum_order.py --device cuda), so no case of that
+# size is held to these limits.
 PIPE_TRACE = {torch.float32: (1e-2, 1e-4), torch.float64: (1e-6, 1e-9)}
 PIPE_X_RTOL = {torch.float32: 2e-3, torch.float64: 1e-12}
 # The main path's 150-iteration one-reduction solves. A float32 pipecg
@@ -1729,13 +1746,17 @@ def _coll_edge_problem(ndev, dims, stencil, dtype, offsets):
 
     cfg = ProblemConfig(*dims, stencil=stencil, dtype=dtype)
     op, prob = local_operator(cfg), generate_problem_sharded(cfg, _one_card(ndev))
-    if offsets:
-        def view(v, k):
-            return torch.empty((v.numel() + k,), dtype=dtype, device=v.device)[k:].copy_(v)
+    return op, _at_offsets(prob, offsets) if offsets else prob
 
-        prob = dataclasses.replace(prob, b=tuple(view(v, offsets[0]) for v in prob.b),
-                                   x0=tuple(view(v, offsets[1]) for v in prob.x0))
-    return op, prob
+
+def _at_offsets(prob, offsets):
+    """The sharded problem with b and x0 copied into views at ``offsets``
+    (elements) past a fresh allocation's start."""
+    def view(v, k):
+        return torch.empty((v.numel() + k,), dtype=v.dtype, device=v.device)[k:].copy_(v)
+
+    return dataclasses.replace(prob, b=tuple(view(v, offsets[0]) for v in prob.b),
+                               x0=tuple(view(v, offsets[1]) for v in prob.x0))
 
 
 def phase_collective_kernels() -> dict:
@@ -2075,19 +2096,96 @@ def _sharded_file_problem(A, mesh, b=None):
     return shard_problem(pad_problem_rows(prob, mesh.size), mesh)
 
 
+# K17's geometry edges (slice 11): (label, ranks, rows per rank as a
+# function of the tile's rows t, the band's positive offsets, b/x0 view
+# offsets). A tile is 256 threads x 4 rows (t = 1024); the data of a rank
+# goes through the ring where L is a multiple of a 16-byte word's values
+# (4 float32, 2 float64), else is read directly; a tile reads x without a
+# select where every row's reach stays inside the rank. The last case has
+# more diagonals than the offsets kept in shared memory (1024).
+DIA_EDGES = [("L = tile rows - 1", 1, lambda t: t - 1, (1, 37, 200), None),
+             ("L = tile rows", 2, lambda t: t, (1, 37, 200), None),
+             ("L = tile rows + 1", 4, lambda t: t + 1, (1, 37, 200), None),
+             ("L odd, inner tiles read directly", 6, lambda t: 8 * t + 3, (1, 37, 200), None),
+             ("b/x0 views at element offsets 1 and 3", 8, lambda t: 4 * t, (1, 37, 200), (1, 3)),
+             ("1101 diagonals (past the offsets in shared memory)", 2, lambda t: 2048, tuple(range(3, 1653, 3)),
+              None)]
+
+
+def _dia_apply_check(prob, what) -> None:
+    """K17's apply bit for bit against the plain dia-halo matvec (DiaRows.matvec
+    over BandStrips): a cg launch of one iteration leaves p (= r) and A p,
+    as the kernel's apply computed it, in the launch's state."""
+    from hpccg_tpu_torch.ops.cuda import collective as col
+    from hpccg_tpu_torch.parallel.halo import BandStrips
+
+    _, scratch = col.launch_dia(prob.A, prob.b, prob.x0, method="cg", max_iter=2)
+    torch.cuda.synchronize()
+    state, kinds = scratch.state, col.VECTORS["cg"]
+    p, ap = state[kinds.index(col.P_P)], state[kinds.index(col.P_S)]
+    first = prob.A[0]
+    strips = BandStrips(first.local_nrow, first.bw_lo, first.bw_hi, [v.device for v in prob.b], first.dtype)
+    ext = strips.fill(tuple(p[r] for r in range(len(prob.A))))
+    for r, (blk, x) in enumerate(zip(prob.A, ext)):
+        if not torch.equal(_bits(ap[r]), _bits(blk.matvec(x))):
+            raise AssertionError(f"{what}: the apply of rank {r} differs from DiaRows.matvec")
+
+
+def _dia_case(prob, ndev, L, dtype, tag, stats) -> tuple:
+    """K17 cg and cg1 against the plain version on one sharded problem, as
+    phase_collective_dia_kernels holds them, and the apply bit for bit;
+    returns (the case's line, the launches' row tiles and blocks)."""
+    from hpccg_tpu_torch.ops.cuda import collective as col
+
+    line = []
+    for method in ("cg", "cg1"):
+        what = f"K17 {method} {tag}"
+        rtol, floor, xrtol = _coll_limits(method, dtype)
+        want = col.solve_plain_dia(prob.A, prob.b, prob.x0, method=method, max_iter=DIA_ITERS)
+        tol = _ws_tolerance(want.trace, floor)
+        if tol:
+            want = col.solve_plain_dia(prob.A, prob.b, prob.x0, method=method, max_iter=DIA_ITERS, tolerance=tol)
+        got, again = (col.cg_collective_dia(prob.A, prob.b, prob.x0, method=method, max_iter=DIA_ITERS,
+                                            tolerance=tol) for _ in range(2))
+        torch.cuda.synchronize()
+        if int(got.niters) != int(want.niters):
+            raise AssertionError(f"{what}: niters {int(got.niters)} vs plain {int(want.niters)}")
+        n = int(want.niters) + 1
+        worst = _head_rel(got.trace[:n].double().cpu(), want.trace[:n].double().cpu(), rtol, floor, what)
+        if not bool(torch.isnan(got.trace[n:]).all()):
+            raise AssertionError(f"{what}: trace entries past niters")
+        gx, wx = torch.cat(got.x), torch.cat(want.x)
+        xerr = float((gx - wx).abs().max())
+        if not xerr <= xrtol * float(wx.abs().max()):
+            raise AssertionError(f"{what}: max|x - x_plain| = {xerr:.3e}")
+        same = all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got.x, again.x))
+        if not (same and torch.equal(_bits(got.trace), _bits(again.trace))):
+            raise AssertionError(f"{what}: two launches differ")
+        for name in (K17, K17D) if dtype == torch.float64 else (K17,):
+            stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], xerr)
+        line.append(f"{method} niters {n - 1} trace {worst:.1e} x {xerr:.1e}")
+    _dia_apply_check(prob, f"K17 {tag}")
+    tiles, bpr = col.dia_grid(L, ndev, col.dia_resident_blocks(dtype, "cg"), col.dia_tile_rows(dtype))
+    return "; ".join(line) + f" ({tiles} row tiles/{bpr} blocks), apply bit-identical", (tiles, bpr)
+
+
 def phase_collective_dia_kernels() -> dict:
     """K17 (cg, cg1) against its plain version with every rank on cuda:0, at
     1, 2, 4, 6 and 8 ranks, DIA_ITERS iterations, float32 and float64, on
     the DIA_CASES bands: a scattered multi-row band (at 2048 and 100000
     rows per rank: blocks take several row tiles in turns), the diagonal alone
-    (no strips) and a band as wide as the shard (rows go both ways). Limits
-    as K15's: niters equal, the trace within WS_TRACE above its floor (the
-    solve stops there, on a tolerance between two of the plain trace's
-    entries), x within WS_X_RTOL, two launches bit-identical. Returns K17's
-    max|x - x_plain|."""
+    (no strips) and a band as wide as the shard (rows go both ways); then
+    at the edges of its tile (DIA_EDGES, one rank count each, both dtypes);
+    then the main path's 128^3 DIA on 4 ranks in both dtypes (the apply
+    only). Limits as K15's: niters equal, the trace within WS_TRACE above
+    its floor (the solve stops there, on a tolerance between two of the
+    plain trace's entries), x within WS_X_RTOL, two launches bit-identical;
+    and in every case the apply bit for bit against DiaRows.matvec
+    (_dia_apply_check). Returns K17's max|x - x_plain| (float64's also on
+    its own row)."""
     from hpccg_tpu_torch.ops.cuda import collective as col
 
-    stats = {K17: {"max_abs_err": 0.0}}
+    stats = {K17: {"max_abs_err": 0.0}, K17D: {"max_abs_err": 0.0}}
     gen = torch.Generator(device="cuda").manual_seed(5)
     multi = 0
     for ndev in COLL_NDEVS:
@@ -2098,40 +2196,26 @@ def phase_collective_dia_kernels() -> dict:
             for dtype in (torch.float32, torch.float64):
                 prob = _sharded_file_problem(_sym_dia(L * ndev, pos, dtype, gen), mesh)
                 tag = f"{ndev} x {label} {str(dtype)[6:]}"
-                line = []
-                for method in ("cg", "cg1"):
-                    what = f"K17 {method} {tag}"
-                    rtol, floor, xrtol = _coll_limits(method, dtype)
-                    want = col.solve_plain_dia(prob.A, prob.b, prob.x0, method=method, max_iter=DIA_ITERS)
-                    tol = _ws_tolerance(want.trace, floor)
-                    if tol:
-                        want = col.solve_plain_dia(prob.A, prob.b, prob.x0, method=method, max_iter=DIA_ITERS,
-                                                   tolerance=tol)
-                    got, again = (col.cg_collective_dia(prob.A, prob.b, prob.x0, method=method, max_iter=DIA_ITERS,
-                                                        tolerance=tol) for _ in range(2))
-                    torch.cuda.synchronize()
-                    if int(got.niters) != int(want.niters):
-                        raise AssertionError(f"{what}: niters {int(got.niters)} vs plain {int(want.niters)}")
-                    n = int(want.niters) + 1
-                    worst = _head_rel(got.trace[:n].double().cpu(), want.trace[:n].double().cpu(), rtol, floor, what)
-                    if not bool(torch.isnan(got.trace[n:]).all()):
-                        raise AssertionError(f"{what}: trace entries past niters")
-                    gx, wx = torch.cat(got.x), torch.cat(want.x)
-                    xerr = float((gx - wx).abs().max())
-                    if not xerr <= xrtol * float(wx.abs().max()):
-                        raise AssertionError(f"{what}: max|x - x_plain| = {xerr:.3e}")
-                    same = all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got.x, again.x))
-                    if not (same and torch.equal(_bits(got.trace), _bits(again.trace))):
-                        raise AssertionError(f"{what}: two launches differ")
-                    stats[K17]["max_abs_err"] = max(stats[K17]["max_abs_err"], xerr)
-                    bpr = col.dia_blocks_per_rank(L, ndev, dtype, method)
-                    tiles = -(-L // col.dia_tile_rows())
-                    multi += int(L == DIA_MULTI and tiles > bpr)
-                    line.append(f"{method} niters {n - 1} trace {worst:.1e} x {xerr:.1e} ({tiles} row tiles/{bpr} "
-                                "blocks)")
-                say(f"[collective-dia] {tag}: ok, bit-identical; " + "; ".join(line))
+                line, (tiles, bpr) = _dia_case(prob, ndev, L, dtype, tag, stats)
+                multi += int(L == DIA_MULTI and tiles > bpr)
+                say(f"[collective-dia] {tag}: ok, bit-identical; {line}")
     if not multi:
         raise AssertionError(f"{DIA_MULTI} rows/rank: no rank count gave a rank more row tiles than blocks")
+    for label, ndev, rows, pos, views in DIA_EDGES:
+        for dtype in (torch.float32, torch.float64):
+            L = rows(col.dia_tile_rows(dtype))
+            prob = _sharded_file_problem(_sym_dia(L * ndev, pos, dtype, gen), _one_card(ndev))
+            if views:
+                prob = _at_offsets(prob, views)
+            tag = f"{label}: {ndev} x {L} rows, {2 * len(pos) + 1} diagonals {str(dtype)[6:]}"
+            line, _ = _dia_case(prob, ndev, L, dtype, tag, stats)
+            say(f"[collective-dia] {tag}: ok, bit-identical; {line}")
+    mesh = _one_card(FILE_NDEV)
+    for dtype in (torch.float32, torch.float64):
+        prob, dia = _explicit_128(dtype)
+        _dia_apply_check(_sharded_file_problem(dia, mesh, prob.b), f"K17 4 x 128^3/4 {str(dtype)[6:]}")
+        say(f"[collective-dia] 4 x 128^3/4 {str(dtype)[6:]} (the main path's matrix): the apply bit-identical to "
+            "DiaRows.matvec")
     return stats
 
 
@@ -2194,7 +2278,7 @@ def _main_path_slice5() -> None:
                 raise AssertionError(f"{what}: max|x - x_single| = {xerr:.3e} > {xlim:.3e}")
             note += f"; x {xerr:.2e}"
             if tier == "dia-collective":
-                if delta[K17] != 1 or sum(delta.values()) != 1:
+                if delta[K17] != 1 or _launch_sum(delta) != 1 or delta[K17D] != int(not f32):
                     raise AssertionError(f"{what}: expected one launch of K17, got {delta}")
                 plain = col.solve_plain_dia(sp.A, sp.b, sp.x0, method=method, max_iter=EXPLICIT_ITERS)
                 prtol, pfloor = WS_TRACE[dtype] if method == "cg" else (
@@ -2289,8 +2373,9 @@ def phase_timing_file_mesh(card: str, stats: dict) -> None:
     float32, the 128^3 DIA on 4 ranks of one card: dia-collective (K17, cg
     and cg1), dia-halo (K9 per rank), beside the single-device DIA solve.
     The ranks share one card: these are no scaling numbers. Then K17 (cg)
-    against its plain version, plain, kernel, kernel, plain, and the device
-    busy share of one 50-iteration K17 solve."""
+    against its plain version, plain, kernel, kernel, plain, in float32 and
+    float64 (the kernels line's two K17 rows), and the device busy share of
+    one 50-iteration K17 solve."""
     from hpccg_tpu_torch import make_cg
     from hpccg_tpu_torch.ops.cuda import collective as col
     from hpccg_tpu_torch.parallel import cg as pcg
@@ -2317,21 +2402,28 @@ def phase_timing_file_mesh(card: str, stats: dict) -> None:
     t = slope(lambda k: make_cg(dia, max_iter=k + 1)(prob.b, prob.x0))
     say(f"[timing] 128^3 f32 single-device DIA (K9): {t:.2f} us/iter [{card}]")
 
-    def plain(k):
-        col.solve_plain_dia(sp.A, sp.b, sp.x0, method="cg", max_iter=k + 1)
+    for name, dtype in ((K17, torch.float32), (K17D, torch.float64)):
+        prob_t, dia_t = _explicit_128(dtype)
+        sp_t = _sharded_file_problem(dia_t, mesh, prob_t.b)
 
-    def kernel(k):
-        col.cg_collective_dia(sp.A, sp.b, sp.x0, method="cg", max_iter=k + 1)
+        def plain(k, sp_t=sp_t):
+            col.solve_plain_dia(sp_t.A, sp_t.b, sp_t.x0, method="cg", max_iter=k + 1)
 
-    t_p1, t_k1, t_k2, t_p2 = (slope(f) for f in (plain, kernel, kernel, plain))
-    st = stats[K17]
-    st["ms"], st["plain_ms"] = (t_k1 + t_k2) / 2e3, (t_p1 + t_p2) / 2e3
-    # one cg iteration: the diagonal data read once and 11 vector passes (p update 3, apply 2, x/r update 6)
-    ndiag = dia.ndiag
-    _model(st, (ndiag + 11) * n * 4, 2 * ndiag * n + 2 * 11 * n, 4)
-    bound_ms, _ = _bound(st)
-    say(f"[timing] K17 (cg) at {tag}: {st['ms'] * 1e3:.2f} us/iter vs plain {st['plain_ms'] * 1e3:.2f}, bound "
-        f"{bound_ms * 1e3:.2f} ({(ndiag + 11) * n * 4 / 1e6:.1f} MB per iteration) [{card}]")
+        def kernel(k, sp_t=sp_t):
+            col.cg_collective_dia(sp_t.A, sp_t.b, sp_t.x0, method="cg", max_iter=k + 1)
+
+        t_p1, t_k1, t_k2, t_p2 = (slope(f) for f in (plain, kernel, kernel, plain))
+        st = stats[name]
+        st["ms"], st["plain_ms"] = (t_k1 + t_k2) / 2e3, (t_p1 + t_p2) / 2e3
+        # one cg iteration: the diagonal data read once and 10 vector passes
+        # (p update with x += alpha p folded in 5, apply 2, r update 3); the
+        # apply's 2 ndiag operations a row, three axpys and two dots 10
+        ndiag, esize = dia_t.ndiag, dia_t.data.element_size()
+        _model(st, (ndiag + 10) * n * esize, 2 * ndiag * n + 10 * n, esize)
+        bound_ms, _ = _bound(st)
+        say(f"[timing] {name} (cg) at 4 x 128^3/4 {str(dtype)[6:]} DIA: {st['ms'] * 1e3:.2f} us/iter vs plain "
+            f"{st['plain_ms'] * 1e3:.2f}, bound {bound_ms * 1e3:.2f} ({(ndiag + 10) * n * esize / 1e6:.1f} MB per "
+            f"iteration) [{card}]")
 
     def one(k):
         col.cg_collective_dia(sp.A, sp.b, sp.x0, method="cg", max_iter=k + 1)

@@ -65,8 +65,8 @@
 //     one hop less.
 //   - The protocol's hops are its cost at these sizes, so each is paid once:
 //     every rank of a launch shares this card, so the counters' atomics and
-//     fences take device scope, not the system's (K17's; a multi-card
-//     launch would take the system's again); a rank's row goes to its peers
+//     fences take device scope, not the system's (as K17's do; a
+//     multi-card launch would take the system's); a rank's row goes to its peers
 //     behind one fence; pipecg double-buffers w, so that its exchange is
 //     the allreduce's start and no barrier follows its apply.
 //   - Everything other blocks or ranks wrote in the launch is read through

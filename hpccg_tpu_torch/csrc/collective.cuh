@@ -1,9 +1,9 @@
 // The protocol of the collective whole-solve kernels K15/K16 (collective.cu,
 // the z-stacked stencil) and K17 (collective_dia.cu, a banded explicit
-// matrix), and K17's two CG drivers. K15/K16 have drivers of their own on
-// the staged tile, with per-plane dot products (collective.cu: their
-// allreduce is Slab::reduce_start/reduce_finish, this protocol with the
-// rank's row formed from per-plane partials).
+// matrix). Each kernel's file holds its drivers: K15/K16's march the staged
+// tile with per-plane dot products (their allreduce is
+// Slab::reduce_start/reduce_finish, this protocol with the rank's row formed
+// from per-plane partials); K17's cg and cg1 use Comm::allreduce.
 //
 // Ranks. The mesh is single-controller (parallel/mesh.py): every rank of
 // the launch lives on this device. The grid is ndev x bpr blocks, every
@@ -11,9 +11,10 @@
 // launch is refused); block b serves rank b / bpr. Ranks meet only through
 // memory that a peer GPU could also write, through per-rank pointer tables:
 // no grid-wide sync, so the ranks are not in lockstep and the exchange
-// protocol below is what orders them. A multi-card launch would only fill
-// the pointer tables with peer (P2P) addresses; it is not built yet
-// (ROADMAP).
+// protocol below is what orders them. Both kernels take the counters' scope
+// as a template argument and instantiate it at device scope. A multi-card
+// launch would fill the pointer tables with peer (P2P) addresses and take
+// the system's scope; it is not built yet (ROADMAP).
 //
 // Protocol (JAX's phase and parity discipline, collective_kernel.py:22-32):
 //   - rank barrier: a rank's blocks sync through an epoch counter in global
@@ -23,9 +24,9 @@
 //     into their landing buffers, then release-increments the neighbours'
 //     arrival counter of that phase; a reader acquire-waits for bpr
 //     arrivals per exchange from each neighbour. Each rank has up to five
-//     phases of (from below, from above) landing buffers: the cg and cg1
-//     drivers here use phase 0 for the init exchange and 1 for the loop
-//     (K15/K16's use of them: collective.cu);
+//     phases of (from below, from above) landing buffers: K17's cg and cg1
+//     use phase 0 for the init exchange and 1 for the loop (K15/K16's use
+//     of them: collective.cu);
 //   - allreduce: each block writes its partials, release-increments its
 //     rank's counter; block 0 of the rank waits for all, sums them in a
 //     fixed tree, writes the rank's row into the slot's table of every
@@ -47,12 +48,10 @@
 // the other blocks see the word and leave too. The wrappers
 // (ops/cuda/collective.py) raise RuntimeError with it.
 //
-// A view of a rank for the drivers here (a struct deriving from Comm, K17's
-// DiaRank) adds what depends on the operator: push(ph, i, v), which sends
-// real element i of a vector being produced to the neighbours' landing
-// buffers of phase ph, and apply(kind, ph, emit), which computes A v over
-// the rank's rows with phase ph's landing buffers as the halo and calls
-// emit(i, v[i], (A v)[i]).
+// A view of a rank (a struct deriving from Comm: K15/K16's Slab, K17's
+// DiaRank) adds what depends on the operator: the pushes of a vector being
+// produced into the neighbours' landing buffers, and the apply of A over
+// the rank's rows with a phase's landing buffers as the halo.
 //
 // Storage and compute (storage.cuh): the vectors and the landing buffers
 // are T, the arithmetic, the partials, the allreduce table, the scalars, the
@@ -106,12 +105,12 @@ __device__ __forceinline__ unsigned long long globaltimer() {
 }
 
 // The counters' atomics and fences have the scope of the memory the ranks
-// share: the system (peer cards; the default, K17's) or the device (every
-// rank of the launch on one card: K15/K16).
+// share: the device (every rank of the launch on one card: K15-K17 as
+// built) or the system (peer cards: a multi-card launch).
 template <cuda::thread_scope Scope>
 using ScopedAtomic = cuda::atomic_ref<unsigned, Scope>;
 
-template <cuda::thread_scope Scope = cuda::thread_scope_system>
+template <cuda::thread_scope Scope>
 __device__ __forceinline__ void release_add(unsigned* c) {
   ScopedAtomic<Scope>(*c).fetch_add(1u, cuda::memory_order_release);
 }
@@ -130,7 +129,7 @@ __host__ __device__ __forceinline__ int ceil_div(int a, int b) { return (a + b -
 // One block's view of its rank and the protocol; NT threads per block, n
 // real elements per rank; vectors stored in T, computed in S; the counters
 // at memory scope Scope.
-template <typename T, typename S, int NT, cuda::thread_scope Scope = cuda::thread_scope_system>
+template <typename T, typename S, int NT, cuda::thread_scope Scope>
 struct Comm {
   using Store = T;
   using Scalar = S;
@@ -223,13 +222,6 @@ struct Comm {
     return true;
   }
 
-  // f(i) for each real element i of the rank this block takes.
-  template <typename F>
-  __device__ void each(F&& f) {
-    const int64_t stride = (int64_t)bpr * NT;
-    for (int64_t i = (int64_t)lb * NT + tid; i < n; i += stride) f(i);
-  }
-
   // The first half of an allreduce of (a, b) over the ranks in `slot`:
   // this block's partials, and (block 0 of the rank) the rank's row in
   // every peer's table.
@@ -303,151 +295,6 @@ struct Comm {
 
 #define HPCCG_TRY(cond) \
   if (!(cond)) return
-
-// Method cg: the reference recurrence (collective_kernel.py:_cg_whole_solve),
-// exchanging p (phase 0 at the init, 1 in the loop); P_S holds A p.
-template <class Rank>
-__device__ void solve_cg(Rank& R) {
-  using T = typename Rank::Store;
-  using S = typename Rank::Scalar;
-  const T* b = R.template ptr<T>(P_B, R.rank);
-  const T* x0 = R.template ptr<T>(P_X0, R.rank);
-  T *X = R.vec(P_X), *Rv = R.vec(P_R), *Pv = R.vec(P_P), *AP = R.vec(P_S);
-  // init: x = p = x0; r = b - A p; rtrans = r.r (slot 0)
-  R.each([&](int64_t i) {
-    const T v = x0[i];
-    X[i] = v;
-    Pv[i] = v;
-    R.push(0, i, v);
-  });
-  HPCCG_TRY(R.exchange(0));
-  S rr = S(0);
-  R.apply(P_P, 0, [&](int64_t i, S, S y) {
-    const T r = from_s<T>(to_s(b[i]) - y);
-    Rv[i] = r;
-    const S rs = to_s(r);
-    rr += rs * rs;
-  });
-  S rtrans, unused;
-  HPCCG_TRY(R.allreduce(rr, S(0), 0, rtrans, unused));
-  S normr = sqrt(rtrans), rtrans_old = rtrans;
-  if (R.leader) R.P.trace[0] = normr;
-  int k = 1;
-  while (k < R.P.max_iter && normr > R.P.tol) {
-    // allreduce 1: r.r (at k == 1 the init partials again: the same bits)
-    HPCCG_TRY(R.allreduce(rr, S(0), 1, rtrans, unused));
-    const S beta = k == 1 ? S(0) : rtrans / rtrans_old;
-    normr = sqrt(rtrans);
-    if (R.leader) R.P.trace[k] = normr;
-    R.each([&](int64_t i) {
-      const T p = from_s<T>(to_s(__ldcg(Rv + i)) + beta * to_s(__ldcg(Pv + i)));
-      Pv[i] = p;
-      R.push(1, i, p);
-    });
-    HPCCG_TRY(R.exchange(1));
-    S pap_blk = S(0), pap;
-    R.apply(P_P, 1, [&](int64_t i, S c, S y) {
-      AP[i] = from_s<T>(y);
-      pap_blk += c * y;
-    });
-    // allreduce 2: p.Ap
-    HPCCG_TRY(R.allreduce(pap_blk, S(0), 0, pap, unused));
-    const S alpha = rtrans / pap;
-    rr = S(0);
-    R.each([&](int64_t i) {
-      X[i] = from_s<T>(to_s(__ldcg(X + i)) + alpha * to_s(__ldcg(Pv + i)));
-      const T r = from_s<T>(to_s(__ldcg(Rv + i)) - alpha * to_s(__ldcg(AP + i)));
-      Rv[i] = r;
-      const S rs = to_s(r);
-      rr += rs * rs;
-    });
-    rtrans_old = rtrans;
-    ++k;
-  }
-  R.finish(normr, rtrans, k);
-}
-
-// Method cg1: Chronopoulos-Gear (collective_kernel.py:_cg1_whole_solve),
-// exchanging x at the init (phase 0) and r in every iteration (phase 1);
-// P_S = A p by recurrence, P_U = A r.
-template <class Rank>
-__device__ void solve_cg1(Rank& R) {
-  using T = typename Rank::Store;
-  using S = typename Rank::Scalar;
-  const T* b = R.template ptr<T>(P_B, R.rank);
-  const T* x0 = R.template ptr<T>(P_X0, R.rank);
-  T *X = R.vec(P_X), *Rv = R.vec(P_R), *Pv = R.vec(P_P), *Sv = R.vec(P_S), *U = R.vec(P_U);
-  R.each([&](int64_t i) {
-    const T v = x0[i];
-    X[i] = v;
-    R.push(0, i, v);
-  });
-  HPCCG_TRY(R.exchange(0));
-  R.apply(P_X, 0, [&](int64_t i, S, S y) {
-    const T r = from_s<T>(to_s(b[i]) - y);
-    Rv[i] = r;
-    R.push(1, i, r);
-  });
-  HPCCG_TRY(R.exchange(1));
-  S g = S(0), d = S(0);
-  R.apply(P_R, 1, [&](int64_t i, S c, S y) {
-    U[i] = from_s<T>(y);
-    g += c * c;
-    d += c * y;
-  });
-  S gamma, delta;
-  HPCCG_TRY(R.allreduce(g, d, 0, gamma, delta));
-  if (R.leader) R.P.trace[0] = sqrt(gamma);
-  S alpha = gamma / delta, gamma_top = gamma, beta = S(0);
-  int k = 1;
-  while (k < R.P.max_iter && sqrt(gamma_top) > R.P.tol) {
-    if (R.leader) R.P.trace[k] = sqrt(gamma);
-    const bool first = k == 1;
-    // the end of body k-1 (p = r + beta p, s = u + beta s) fused with the
-    // start of body k (x += alpha p, r -= alpha s)
-    R.each([&](int64_t i) {
-      const S rv = to_s(__ldcg(Rv + i)), uv = to_s(__ldcg(U + i));
-      const T p = from_s<T>(first ? rv : rv + beta * to_s(__ldcg(Pv + i)));
-      const T s = from_s<T>(first ? uv : uv + beta * to_s(__ldcg(Sv + i)));
-      Pv[i] = p;
-      Sv[i] = s;
-      X[i] = from_s<T>(to_s(__ldcg(X + i)) + alpha * to_s(p));
-      const T r = from_s<T>(rv - alpha * to_s(s));
-      Rv[i] = r;
-      R.push(1, i, r);
-    });
-    HPCCG_TRY(R.exchange(1));
-    g = S(0);
-    d = S(0);
-    R.apply(P_R, 1, [&](int64_t i, S c, S y) {
-      U[i] = from_s<T>(y);
-      g += c * c;
-      d += c * y;
-    });
-    S g_new, dl;
-    HPCCG_TRY(R.allreduce(g, d, k & 1, g_new, dl));
-    beta = g_new / gamma;
-    alpha = g_new / (dl - beta * g_new / alpha);
-    gamma_top = gamma;
-    gamma = g_new;
-    ++k;
-  }
-  R.finish(sqrt(gamma_top), gamma_top, k);
-}
-
-// Blocks of `kernel` (NT threads) resident at once on the current device
-// (occupancy x SMs). Returns a CUDA error code.
-inline int occupancy_blocks(const void* kernel, int nt, int* blocks) {
-  int dev = 0, sms = 0, coop_ok = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop_ok, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, nt, 0);
-  if (err != cudaSuccess) return (int)err;
-  if (!coop_ok || per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  *blocks = per_sm * sms;
-  return (int)cudaSuccess;
-}
 
 }  // namespace coll
 }  // namespace hpccg

@@ -67,7 +67,7 @@ _SIGNATURES = {
     "hpccg_collective_f64": [_P] * 4 + [_I] * 4 + [_LL, _I, _I, _LL] + [_I] * 3 + [ctypes.c_double, _LL, _P],
     "hpccg_collective_bf16": [_P] * 4 + [_I] * 4 + [_LL, _I, _I, _LL] + [_I] * 3 + [ctypes.c_double, _LL, _P],
     "hpccg_collective_dia_resident_blocks": [_I, _I],
-    "hpccg_collective_dia_block_rows": [],
+    "hpccg_collective_dia_block_rows": [_I],
     "hpccg_collective_dia_f32": [_P] * 5 + [_I, _I, _LL] + [_I] * 5 + [ctypes.c_double, _LL, _P],
     "hpccg_collective_dia_f64": [_P] * 5 + [_I, _I, _LL] + [_I] * 5 + [ctypes.c_double, _LL, _P],
     "hpccg_stream_copy_f32": [_P, _P, _LL, _P],

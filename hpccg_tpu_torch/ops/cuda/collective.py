@@ -26,7 +26,8 @@ rank order; K17's runs it on the plain dia-halo matvec (``DiaRows.matvec``
 over ``parallel.halo.BandStrips``). A wrapper runs it only when the shards
 lie on the CPU; for CUDA shards it launches the kernel or raises, and
 counts its launches in ``<wrapper>.launches`` (and those of K15/K16's
-bfloat16 instance in ``<wrapper>.launches_bf16`` too). Every rank of a
+bfloat16 instance in ``<wrapper>.launches_bf16`` too, K17's float64
+instance's in ``cg_collective_dia.launches_f64``). Every rank of a
 launch must share one card: a mesh across cards raises NotImplementedError
 (the multi-card launch, with peer pointer tables, is queued in ROADMAP).
 
@@ -464,40 +465,53 @@ def dia_resident_blocks(dtype, method: str) -> int:
     return load_library().hpccg_collective_dia_resident_blocks(0 if dtype == torch.float32 else 1, METHODS[method])
 
 
-def dia_tile_rows() -> int:
-    """The rows a block of K17 takes at a time (threads x rows per thread)."""
-    return load_library().hpccg_collective_dia_block_rows()
+def dia_tile_rows(dtype) -> int:
+    """The rows a block of K17 takes at a time (256 threads x 4 rows), as
+    the library reports them for ``dtype``."""
+    return load_library().hpccg_collective_dia_block_rows(0 if dtype == torch.float32 else 1)
+
+
+def dia_grid(L: int, ndev: int, resident: int, tile_rows: int) -> tuple:
+    """(row tiles of a rank, blocks of a rank) of a K17 launch: a rank's
+    ``L`` rows in tiles of ``tile_rows``, one block per tile, capped by the
+    ``resident`` blocks of the card shared among ``ndev`` ranks (a rank's
+    blocks take its tiles in turns)."""
+    tiles = -(-L // tile_rows)
+    return tiles, min(tiles, resident // ndev)
 
 
 def dia_blocks_per_rank(L: int, ndev: int, dtype, method: str) -> int:
-    """K17's blocks per rank: one per tile of the rank's rows, capped by the
-    card's resident blocks shared among ``ndev`` ranks."""
+    """K17's blocks per rank on the current card (``dia_grid``)."""
     resident = _resident(dia_resident_blocks(dtype, method), ndev, "collective DIA kernel")
-    return min(-(-L // dia_tile_rows()), resident // ndev)
+    return dia_grid(L, ndev, resident, dia_tile_rows(dtype))[1]
 
 
 def launch_dia(blocks, bs, x0s, *, method: str, max_iter: int, tolerance: float = 0.0, wait_ns: int = WAIT_NS):
     """One cooperative launch of K17 for every rank, on the shards' card and
     the current stream; synchronises to read the error word and raises
-    RuntimeError if a wait gave up. Returns a CGResult."""
+    RuntimeError if a wait gave up. Returns (the CGResult, the launch's
+    device state): its ``state`` holds ``VECTORS[method]`` per rank, so that
+    after a cg solve of one iteration P_S = A P_P as the kernel's apply
+    computed it."""
     blocks, bs, x0s = tuple(blocks), tuple(bs), tuple(x0s)
     dev, dtype, ndev = bs[0].device, bs[0].dtype, len(bs)
     first = blocks[0]
     L, bw_lo, bw_hi = first.local_nrow, first.bw_lo, first.bw_hi
-    bpr = dia_blocks_per_rank(L, ndev, dtype, method)
-    # (phase 0/1, from below / from above, strip rows) per rank
-    sc = _Scratch(bs, x0s, VECTORS[method], (2, 2, max(bw_lo, bw_hi, 1)), bpr, max_iter,
-                  data=[blk.data for blk in blocks])
-    offsets = torch.tensor(first.offsets, dtype=torch.int32, device=dev)
     lib = load_library()
     fn = lib.hpccg_collective_dia_f32 if dtype == torch.float32 else lib.hpccg_collective_dia_f64
-    # the C entry points launch on the current device, which must be the stream's
+    # the grid's occupancy query, the ring's shared-memory attribute and the
+    # launch all act on the current device, which must be the shards'
     with torch.cuda.device(dev):
+        bpr = dia_blocks_per_rank(L, ndev, dtype, method)
+        # (phase 0/1, from below / from above, strip rows) per rank
+        sc = _Scratch(bs, x0s, VECTORS[method], (2, 2, max(bw_lo, bw_hi, 1)), bpr, max_iter,
+                      data=[blk.data for blk in blocks])
+        offsets = torch.tensor(first.offsets, dtype=torch.int32, device=dev)
         code = fn(sc.ptrs.data_ptr(), offsets.data_ptr(), sc.trace.data_ptr(), sc.stats.data_ptr(),
                   sc.err.data_ptr(), ndev, bpr, L, first.ndiag, bw_lo, bw_hi, METHODS[method], max_iter,
                   float(tolerance), int(wait_ns), torch.cuda.current_stream(dev).cuda_stream)
     check_launch(code, "collective DIA kernel (cooperative launch)")
-    return sc.result(wait_ns, f"{ndev} ranks x {bpr} blocks")
+    return sc.result(wait_ns, f"{ndev} ranks x {bpr} blocks"), sc
 
 
 def cg_collective_dia(blocks, bs, x0s, *, method: str = "cg1", max_iter: int, tolerance: float = 0.0):
@@ -510,9 +524,11 @@ def cg_collective_dia(blocks, bs, x0s, *, method: str = "cg1", max_iter: int, to
     dev = _check_dia(blocks, bs, x0s)
     if dev.type == "cpu":
         return solve_plain_dia(blocks, bs, x0s, method=method, max_iter=max_iter, tolerance=tolerance)
-    res = launch_dia(blocks, bs, x0s, method=method, max_iter=max_iter, tolerance=tolerance)
+    res, _ = launch_dia(blocks, bs, x0s, method=method, max_iter=max_iter, tolerance=tolerance)
     cg_collective_dia.launches += 1
+    if bs[0].dtype == torch.float64:
+        cg_collective_dia.launches_f64 += 1
     return res
 
 
-cg_collective_dia.launches = 0
+cg_collective_dia.launches = cg_collective_dia.launches_f64 = 0

@@ -1,5 +1,5 @@
 """Time the collective whole solves of two checkouts in turns on the card,
-and compare K17's and K5's outputs.
+and compare their outputs.
 
     python3 scripts/collective_ab.py PARENT_DIR [CHANGE_DIR]
 
@@ -11,13 +11,14 @@ parent, change, change, parent, and prints slope-timed µs per iteration
 (CUDA events, legs of 17 and 97 iterations; 17 and 145 for K17 and K5):
 K15 (cg, cg1) and K16 (pipecg) at 1 x 100^3 in float32 and bfloat16 (where
 the checkout's kernels take it), at 4 x 100^3 and 8 x 64^3 in float32,
-every rank on the one card; K17 (cg, cg1) on the 128^3 DIA matrix on 4
-ranks of one card; and K5 (megakernel) at 100^3 float32 as a control.
-Each process also saves the trace and x of a 50-iteration K17 solve (cg and
-cg1) and of a 150-iteration K5 solve under ``build/collective_ab/``; the
-script then says whether the first parent's and the first change's saved
-outputs are bit for bit the same, and each checkout's two runs. Runs on a
-CUDA card only.
+every rank on the one card; K17 (cg, cg1 in float32, cg in float64) on
+the 128^3 DIA matrix on 4 ranks of one card; and K5 (megakernel) at 100^3
+float32 as a control. Each process also saves the trace and x of a
+50-iteration K17 solve (each row), of K15 (cg, cg1) and K16 at 4 x 100^3
+float32 (50 iterations) and of a 150-iteration K5 solve under
+``build/collective_ab/``; the script then says whether the first parent's
+and the first change's saved outputs are bit for bit the same, and each
+checkout's two runs. Runs on a CUDA card only.
 """
 
 from __future__ import annotations
@@ -53,15 +54,19 @@ for ndev, dims, dtype in cells:
         kern = cs._coll_kernel(method)
         t = time_loop_slope(lambda k: kern(op, prob.b, prob.x0, max_iter=k + 1), device="cuda", short=17, long=97)
         out[f"{ndev}x{dims}^3 {str(dtype)[6:]} {method}"] = t * 1e6
+        if (ndev, dtype) == (4, torch.float32):
+            res = kern(op, prob.b, prob.x0, max_iter=50)
+            saved[f"{'K16' if method == 'pipecg' else 'K15'} {method}"] = (res.trace.cpu(), torch.cat(res.x).cpu())
 mesh = cs._one_card(4)
-prob128, dia = cs._explicit_128(torch.float32)
-sp = cs._sharded_file_problem(dia, mesh, prob128.b)
-for method in ("cg", "cg1"):
-    t = time_loop_slope(lambda k: col.cg_collective_dia(sp.A, sp.b, sp.x0, method=method, max_iter=k + 1),
-                        device="cuda", short=17, long=145)
-    out[f"K17 float32 {method}"] = t * 1e6
-    res = col.cg_collective_dia(sp.A, sp.b, sp.x0, method=method, max_iter=50)
-    saved[f"K17 {method}"] = (res.trace.cpu(), torch.cat(res.x).cpu())
+for dtype, methods in ((torch.float32, ("cg", "cg1")), (torch.float64, ("cg",))):
+    prob128, dia = cs._explicit_128(dtype)
+    sp = cs._sharded_file_problem(dia, mesh, prob128.b)
+    for method in methods:
+        t = time_loop_slope(lambda k: col.cg_collective_dia(sp.A, sp.b, sp.x0, method=method, max_iter=k + 1),
+                            device="cuda", short=17, long=145)
+        out[f"K17 {str(dtype)[6:]} {method}"] = t * 1e6
+        res = col.cg_collective_dia(sp.A, sp.b, sp.x0, method=method, max_iter=50)
+        saved[f"K17 {str(dtype)[6:]} {method}"] = (res.trace.cpu(), torch.cat(res.x).cpu())
 g = generate_problem(ProblemConfig(100, 100, 100, dtype=torch.float32), "cuda")
 t = time_loop_slope(lambda k: make_cg(g.A, max_iter=k + 1, backend="megakernel")(g.b, g.x0), device="cuda", short=17,
                     long=145)

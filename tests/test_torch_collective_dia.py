@@ -15,6 +15,12 @@ limits of its distributed file mode: niters equal, trace rtol 1e-9 above
 1e-12 * trace[0], x rtol 1e-9 (atol 1e-12). K17 sums the ranks' partials in
 rank order where JAX's kernel uses recursive doubling at 4 and 8 ranks, so
 traces part in the last bits and are held to a tolerance.
+
+K17's grid (``ops.cuda.collective.dia_grid``) is held at the edges of its
+tile of 256 threads x 4 rows, and the plain version against
+JAX's distributed DIA solve on shards one row below, at and above the tile
+and on b/x0 views at odd element offsets (the shapes chip_smoke.py runs
+the kernel at).
 """
 
 import numpy as np
@@ -184,3 +190,70 @@ def test_refusals():
         col.cg_collective_dia(prob.A, prob.b, prob.x0, method="pipecg", max_iter=5)
     with pytest.raises(TypeError, match="DiaRows"):
         col.cg_collective_dia(prob.b, prob.b, prob.x0, max_iter=5)
+
+
+# K17's tile (csrc/collective_dia.cu): 256 threads x 4 rows
+TILE_ROWS = {np.float32: 1024, np.float64: 1024}
+
+
+@pytest.mark.parametrize("L, ndev, resident, tile, want", [
+    (1023, 1, 396, 1024, (1, 1)), (1024, 2, 396, 1024, (1, 1)), (1025, 4, 396, 1024, (2, 2)),
+    (1023, 1, 264, 1024, (1, 1)), (1025, 8, 264, 1024, (2, 2)), (524288, 4, 396, 1024, (512, 99)),
+    (524288, 4, 264, 1024, (512, 66)), (524288, 4, 528, 1024, (512, 132)), (100000, 8, 396, 1024, (98, 49))])
+def test_dia_grid(L, ndev, resident, tile, want):
+    """K17's grid: a rank's row tiles and its blocks, one per tile, capped by
+    the card's resident blocks shared by the ranks (on an H100 4 x 132 for
+    float32 cg, 3 x 132 for cg1, 2 x 132 in float64). 4 x 524288 rows is the
+    main path's 128^3."""
+    assert col.dia_grid(L, ndev, resident, tile) == want
+
+
+@pytest.mark.parametrize("extra", [-1, 0, 1])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_plain_matches_jax_at_the_tile_edges(dtype, extra):
+    """Shards of one row below, at and one above K17's tile (an odd L is not
+    a multiple of a 16-byte word's values), 2 ranks, a band of +-200, cg: the plain K17 against
+    JAX's distributed DIA solve. float64: niters equal, trace rtol 1e-9
+    above 1e-12 * trace[0], x rtol 1e-9 (this file's limits); float32 over
+    12 iterations: trace rtol 1e-4 above 1e-5 * trace[0], x within 1e-5 of
+    max|x| (the card's K17-against-plain limits, WS_TRACE / WS_X_RTOL in
+    chip_smoke.py): the two sum the diagonals and the dots in other orders."""
+    offs = (-200, -37, -1, 0, 1, 37, 200)
+    L = TILE_ROWS[dtype] + extra
+    iters = 30 if dtype == np.float64 else 12
+    data = _band_data(2 * L, offs, 4, dtype)
+    (A, b, x0), prob = _both(data, offs, 2)
+    assert prob.A[0].local_nrow == L
+    jres = jmake_dia(jmake_mesh(2), max_iter=iters, method="cg")(A, b, x0)
+    res = _k17(prob, "cg", iters)
+    assert int(res.niters) == int(jres.niters) == iters - 1
+    jt = np.asarray(jres.trace)
+    rtol, floor, xrtol = (1e-9, 1e-12, 1e-9) if dtype == np.float64 else (1e-4, 1e-5, 1e-5)
+    head = jt > floor * jt[0]
+    np.testing.assert_allclose(res.trace.numpy()[head], jt[head], rtol=rtol)
+    jx = np.asarray(jres.x)
+    assert np.abs(shards_to_numpy(res.x) - jx).max() <= xrtol * np.abs(jx).max()
+
+
+@pytest.mark.parametrize("method", ["cg", "cg1"])
+def test_plain_takes_views_at_odd_offsets(method):
+    """b and x0 shards that are views at element offsets 1 and 3 (the card's
+    16-byte accesses fall back to one element at a time there): the same
+    bits as on contiguous shards, and JAX's distributed DIA solve, float64,
+    4 ranks of 1024 rows, at this file's limits."""
+    offs = (-200, -37, -1, 0, 1, 37, 200)
+    data = _band_data(4096, offs, 5, np.float64)
+    (A, b, x0), prob = _both(data, offs, 4)
+
+    def view(v, k):
+        return torch.empty((v.numel() + k,), dtype=v.dtype)[k:].copy_(v)
+
+    bs, x0s = tuple(view(v, 1) for v in prob.b), tuple(view(v, 3) for v in prob.x0)
+    res = col.cg_collective_dia(prob.A, bs, x0s, method=method, max_iter=30)
+    ref = _k17(prob, method, 30)
+    assert torch.equal(res.trace, ref.trace) and all(torch.equal(a, c) for a, c in zip(res.x, ref.x))
+    jres = jmake_dia(jmake_mesh(4), max_iter=30, method=method)(A, b, x0)
+    jt = np.asarray(jres.trace)
+    head = jt > 1e-12 * jt[0]
+    np.testing.assert_allclose(res.trace.numpy()[head], jt[head], rtol=1e-9)
+    np.testing.assert_allclose(shards_to_numpy(res.x), np.asarray(jres.x), rtol=1e-9, atol=1e-12)

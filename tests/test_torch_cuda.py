@@ -638,6 +638,44 @@ def test_collective_dia_matches_plain(cuda_device, ndev, method, dtype):
     assert all(torch.equal(a, b) for a, b in zip(got.x, again.x)) and torch.equal(got.trace[:n], again.trace[:n])
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("extra, ndev", [(-1, 1), (0, 2), (1, 4), (3, 6), (8192, 4)])
+def test_collective_dia_apply_is_dia_rows_matvec(cuda_device, extra, ndev, dtype):
+    """K17's apply bit for bit against DiaRows.matvec over BandStrips: a cg
+    launch of one iteration leaves p and A p, as the kernel computed it, in
+    the launch's state. Shards of one row below, at, one above and three
+    above K17's tile (an odd L reads the data directly, an even one through
+    the ring) and of eight tiles and more (inner tiles, several per block)."""
+    tile = col.dia_tile_rows(dtype)
+    L = tile + extra
+    prob = _band_problem(cuda_device, L * ndev, 200, 6, dtype, ndev)
+    _, scratch = col.launch_dia(prob.A, prob.b, prob.x0, method="cg", max_iter=2)
+    state, kinds = scratch.state, col.VECTORS["cg"]
+    p, ap = state[kinds.index(col.P_P)], state[kinds.index(col.P_S)]
+    blk = prob.A[0]
+    ext = BandStrips(L, blk.bw_lo, blk.bw_hi, [cuda_device] * ndev, dtype).fill(tuple(p[r] for r in range(ndev)))
+    for r, (blk, x) in enumerate(zip(prob.A, ext)):
+        assert torch.equal(ap[r], blk.matvec(x)), r
+
+
+@pytest.mark.parametrize("method", ["cg", "cg1"])
+def test_collective_dia_f64_off_the_current_card(cuda_device, method):
+    """K17 in float64 (its ring's 64 KB of shared memory is above the 48 KB
+    a kernel gets unless it asks) with the shards on the second card while
+    the first is current: the grid is sized, and the attribute set, on the
+    shards' card, and the solve is the first card's bit for bit."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    want = _band_problem(torch.device("cuda:0"), 2 * 4096, 200, 6, torch.float64, 2)
+    prob = _band_problem(torch.device("cuda:1"), 2 * 4096, 200, 6, torch.float64, 2)
+    with torch.cuda.device(0):
+        got = col.cg_collective_dia(prob.A, prob.b, prob.x0, method=method, max_iter=20)
+        ref = col.cg_collective_dia(want.A, want.b, want.x0, method=method, max_iter=20)
+    assert got.x[0].device == torch.device("cuda:1") and int(got.niters) == int(ref.niters)
+    assert torch.equal(got.trace.cpu(), ref.trace.cpu())
+    assert all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(got.x, ref.x))
+
+
 def test_collective_dia_bounded_wait_raises(cuda_device):
     """A 2-rank K17 launch whose waits may last 0 ns gives up at the first
     wait that is not already met: RuntimeError with the error word, no
