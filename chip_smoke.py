@@ -18,11 +18,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    in float32, float64 and bfloat16 (max_iter 30): niters, trace, x, and
    two kernel solves bit-identical; then K1 and K4 past 2^31 points (64-bit
    offsets); then
-   the DIA kernels K9/K10 and the ELL gather kernels K11/K12 (which compute
-   what K13/K14 compute) against theirs, float32 and float64, on the
-   stencil at 100^3 and 128^3, a 1000-diagonal band, the permuted 64^3
-   stencil as loaded and after RCM, a random wide scatter and a skewed
-   matrix (phase_sparse_kernels); then the collective whole solves K15 (cg,
+   the DIA kernels K9/K10, the ELL gather kernels K11/K12 and the
+   relabelled wide-scatter kernel K13 against theirs, float32 and float64,
+   on the stencil at 100^3 and 128^3, a 1000-diagonal band, the permuted
+   64^3 stencil as loaded (K13's class) and after RCM, a random wide
+   scatter (K14's class, which K11/K12 take) and a skewed matrix, the
+   chooser's pick checked on each, K13 bit for bit against K11/K12's launch
+   on the same matrix (phase_sparse_kernels); then the collective whole solves K15 (cg,
    cg1) and K16 (pipecg) against theirs with 1, 2, 4, 6 and 8 ranks on the
    one card, per rank 33x17x9 (27/7-point), 64x48x13, 128x64x16 and
    64x400x9 (more work items than a rank's blocks at 8 ranks), float32
@@ -68,9 +70,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    128^3 matrix (2,097,152 rows, 55,742,968 nonzeros) as ELL and as DIA,
    float64 and float32, on auto (K9-K12), each against the stencil backend
    on the same grid (trace and x, max_iter 50); (d) the wide-scatter solves
-   that K13/K14's launches are counted on: the randomly permuted 128^3
-   float32 stencil through auto_structure (ell+rcm) and as loaded, x in
-   its order against the stencil solve's; (e) slice 4, make_distributed_cg
+   that K13's launches are counted on: the randomly permuted 128^3
+   stencil through auto_structure (ell+rcm, float32) and as loaded
+   (float32 and float64, K13's relabelled kernel), x in its order against
+   the stencil solve's, with each solve's us per iteration (a CUDA-event
+   window); and those that K14's are counted on: the same twin as loaded on
+   the ell-allgather tier at 4 ranks of the card (each rank's scattered
+   rows on K11/K12, gathered in place), float32 and float64; (e) slice 4, make_distributed_cg
    in float32 with every rank on the card, max_iter 150: 1 x 100^3, 64^3
    per rank on 1, 2, 4 and 8 ranks (weak scaling) and 64x64x1024 on 8
    ranks (strong scaling), each on collective (cg, cg1, pipecg: one launch
@@ -141,7 +147,9 @@ torch.add and torch.mul for the probes; null elsewhere). The bf16 rows
 and K4 float32 have a second row at 256^3, past the L2, K5 and K6 a
 second and a third, at 256^3 in float32 and bfloat16, and K15 and K16 a
 second, at 4 x 100^3 in float32; K17 has a second, its float64 instance
-(launches counted on slice 5's main path).
+(launches counted on slice 5's main path); K13 and K14 each a float64
+row (slice 12). K14's rows are K11/K12's kernel on K14's class: they read
+K11/K12's counters, on the ell-allgather solves of the permuted twin.
 
 Each phase prints its seconds. The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -178,10 +186,10 @@ KERNELS = {
     "K10 f64 DIA spmv": ("hpccg_tpu_torch/csrc/dia.cu", "hpccg_tpu/ops/pallas/dia_kernel.py:425"),
     "K11 ELL gather spmv": ("hpccg_tpu_torch/csrc/ell.cu", "hpccg_tpu/ops/pallas/gell_kernel.py:572"),
     "K12 f64 ELL gather spmv": ("hpccg_tpu_torch/csrc/ell.cu", "hpccg_tpu/ops/pallas/gell_kernel.py:618"),
-    "K13 wide scatter, strip stack (ELL gather)": ("hpccg_tpu_torch/csrc/ell.cu",
-                                                    "hpccg_tpu/ops/pallas/gell_stack.py:424"),
-    "K14 wide scatter, dynamic window (ELL gather)": ("hpccg_tpu_torch/csrc/ell.cu",
-                                                       "hpccg_tpu/ops/pallas/gell_dynwin.py:336"),
+    "K13 wide scatter, strip stack (relabelled ELL gather)": ("hpccg_tpu_torch/csrc/ell_scatter.cu",
+                                                               "hpccg_tpu/ops/pallas/gell_stack.py:424"),
+    "K14 wide scatter, dynamic window (K11's ELL gather, in place)": ("hpccg_tpu_torch/csrc/ell.cu",
+                                                                       "hpccg_tpu/ops/pallas/gell_dynwin.py:336"),
     "K15 collective whole solve (cg, cg1)": ("hpccg_tpu_torch/csrc/collective.cu",
                                              "hpccg_tpu/ops/pallas/collective_kernel.py:329"),
     "K16 pipelined collective whole solve": ("hpccg_tpu_torch/csrc/collective.cu",
@@ -219,6 +227,10 @@ KERNELS = {
                                                         "hpccg_tpu/ops/pallas/collective_kernel.py:596"),
     "K17 collective DIA whole solve (cg, cg1), f64": ("hpccg_tpu_torch/csrc/collective_dia.cu",
                                                       "hpccg_tpu/ops/pallas/collective_kernel.py:906"),
+    "K13 f64 wide scatter, strip stack (relabelled ELL gather)": ("hpccg_tpu_torch/csrc/ell_scatter.cu",
+                                                                   "hpccg_tpu/ops/pallas/gell_stack.py:482"),
+    "K14 f64 wide scatter, dynamic window (K12's ELL gather, in place)": ("hpccg_tpu_torch/csrc/ell.cu",
+                                                                           "hpccg_tpu/ops/pallas/gell_dynwin.py:393"),
 }
 SLICE1 = list(KERNELS)[:5]  # the kernels of slice 1's main path
 SLICE2 = list(KERNELS)[5:8]
@@ -230,7 +242,8 @@ SLICE7 = list(KERNELS)[23:28]
 SLICE8 = list(KERNELS)[28:30]
 SLICE9 = list(KERNELS)[30:34]
 SLICE10 = list(KERNELS)[34:36]
-SLICE11 = list(KERNELS)[36:]
+SLICE11 = list(KERNELS)[36:37]
+SLICE12 = list(KERNELS)[37:]
 K5, K6, K7 = SLICE2
 K9, K10, K11, K12, K13, K14 = SLICE3
 K15, K16 = SLICE4
@@ -241,7 +254,11 @@ BIG3, BIG4 = SLICE8
 BIG5, BIG6, BIG5B, BIG6B = SLICE9
 BIG15, BIG16 = SLICE10
 (K17D,) = SLICE11
-WIDE = [K13, K14]  # counted on the wide-scatter solve
+K13D, K14D = SLICE12
+WIDE = [K13, K14, K13D, K14D]
+WIDE13, WIDE14 = [K13, K13D], [K14, K14D]  # counted on the wide-scatter solves as loaded, on one device and in place
+# rows that read another row's counter (K14's rows K11's and K12's)
+SHARED = [K14, K14D]
 # tolerances, kernel vs plain on the same inputs: the sums run in another
 # order (the xy-sums associate like the plain version, but the compiler may
 # contract into FMAs, and the dots are per-block trees)
@@ -819,9 +836,9 @@ def _time_pair(stat, kern, plain) -> None:
 
 
 def _counters():
-    """kernel -> (wrapper, attribute) of its launch count. K13 and K14 are
-    computed by the ELL kernel's float32 instance: their count is K11's, read
-    on the wide-scatter solve."""
+    """kernel -> (wrapper, attribute) of its launch count. K14's class runs
+    K11/K12's kernel: its rows read their counters, on the solves that
+    gather the permuted twin in place."""
     from hpccg_tpu_torch.ops.cuda import collective as col
     from hpccg_tpu_torch.ops.cuda import dia as cdia
     from hpccg_tpu_torch.ops.cuda import ell as cell
@@ -837,7 +854,7 @@ def _counters():
     counters = [(w, "launches") for w in wrappers]
     counters += [(cdia.spmv_dia, "launches_f32"), (cdia.spmv_dia, "launches_f64"),
                  (cell.spmv_ell, "launches_f32"), (cell.spmv_ell, "launches_f64"),
-                 (cell.spmv_ell, "launches_f32"), (cell.spmv_ell, "launches_f32"),
+                 (cell.spmv_ell, "launches_scatter_f32"), (cell.spmv_ell, "launches_f32"),
                  (col.cg_collective, "launches"), (col.cg_collective_pipelined, "launches"),
                  (col.cg_collective_dia, "launches")]
     counters += [(w, "launches_bf16") for w in (st.spmv_stencil, st.spmv_stencil_pap, st.update_p_apply,
@@ -853,14 +870,16 @@ def _counters():
     counters += [(col.cg_collective, "launches"), (col.cg_collective_pipelined, "launches")]
     # slice 11's row is K17's float64 instance, counted apart as well
     counters += [(col.cg_collective_dia, "launches_f64")]
+    # slice 12's rows are K13's float64 instance and K14's (K12's)
+    counters += [(cell.spmv_ell, "launches_scatter_f64"), (cell.spmv_ell, "launches_f64")]
     return dict(zip(KERNELS, counters))
 
 
 def _launch_sum(delta) -> int:
     """The launches in a count delta, each launch once (slice 10's rows
     read the counters of K15 and K16, slice 11's the float64 launches of
-    K17)."""
-    return sum(d for n, d in delta.items() if n not in SLICE10 + SLICE11)
+    K17, K14's rows K11's and K12's)."""
+    return sum(d for n, d in delta.items() if n not in SLICE10 + SLICE11 + SHARED)
 
 
 def _counts() -> dict:
@@ -868,7 +887,8 @@ def _counts() -> dict:
 
 
 def _launch_note(delta) -> str:
-    return json.dumps({n.split()[0]: d for n, d in delta.items() if d and n not in WIDE})
+    return json.dumps({" ".join(n.split()[:2 if n in SLICE12 else 1]): d for n, d in delta.items()
+                       if d and n not in SHARED})
 
 
 def _trace_check(tr, ref, what, rtol=1e-4, floor=1e-7):
@@ -1115,6 +1135,17 @@ def _permuted_128():
     return twin, perm0, op, perm, report
 
 
+@functools.cache
+def _permuted_128_on_card(dtype):
+    """The permuted 128^3 twin as loaded, on the card in ``dtype``. Every
+    dtype shares the float32 twin's column and validity tensors, so the
+    host's reverse Cuthill-McKee order of the relabelled layout is
+    computed once (``reorder._rcm_cached`` keeps it per column tensor)."""
+    twin = _permuted_128()[0]
+    A = twin.A.to("cuda") if dtype == torch.float32 else _permuted_128_on_card(torch.float32)
+    return dataclasses.replace(A, vals=A.vals.to(dtype))
+
+
 def _random_band(n, ndiag, span, dtype, gen):
     """A random DIA band on the card: ndiag distinct offsets in [-span,
     span], 0 among them, zeros outside each diagonal."""
@@ -1196,15 +1227,20 @@ def phase_sparse_kernels(card: str) -> dict:
     after RCM, a random wide scatter (n = 10^6, 9 slots within +-3*10^5: the
     class of K14), and a skewed matrix (one row of 240 slots). DIA must match
     bit for bit (same sums, same roundings), ELL within VEC_RTOL; two launches
-    bit-identical. Device time per launch (_time_pair), kernel and plain in
-    turns, with effective GB/s under the byte models of _dia_bytes and
-    _ell_bytes. The kernels line takes K9-K12's times at 128^3 and K13's /
-    K14's on their classes in float32."""
+    bit-identical. The chooser (``prepare_ell``) must take the relabelled
+    layout on K13's class and K11/K12's on the others, K14's class
+    included; there K13's kernel is held against its plain version within
+    VEC_RTOL, and bit for bit against K11/K12's launch on the same matrix
+    and its own second launch. Device time per
+    launch (_time_pair), kernel and plain in turns, with effective GB/s
+    under the byte models of _dia_bytes and _ell_bytes. The kernels line
+    takes K9-K12's times at 128^3 and K13's / K14's on their classes, in
+    float32 and (slice 12's rows) float64."""
     from hpccg_tpu_torch.ops.cuda import dia as cdia
     from hpccg_tpu_torch.ops.cuda import ell as cell
     from hpccg_tpu_torch.reorder import permute_ell, rcm_permutation
 
-    stats = {name: {"max_abs_err": 0.0} for name in SLICE3}
+    stats = {name: {"max_abs_err": 0.0} for name in SLICE3 + SLICE12}
     gen = torch.Generator(device="cuda").manual_seed(2024)
     perm64, _ = _permuted(_stencil_ell((64, 64, 64), torch.float64, "cpu"), 1)
     rcm64 = permute_ell(perm64.A, rcm_permutation(perm64.A))
@@ -1240,14 +1276,29 @@ def phase_sparse_kernels(card: str) -> dict:
                      ("wide scatter n=10^6", K14, _wide_scatter(1_000_000, 9, 300_000, dtype, gen)),
                      ("skewed 100^3 (one row of 240 slots)", k_ell, _skewed(_stencil_ell((100,) * 3, dtype).A))]
         for tag, name, A in ell_cases:
+            if name in WIDE and not f32:
+                name = K13D if name == K13 else K14D
             S = cell.prepare_ell(A)
+            if isinstance(S, cell.ScatterEll) != (name in WIDE13):
+                raise AssertionError(f"{tag} {dtype}: the chooser took {type(S).__name__}")
             x = torch.randn(A.local_nrow, generator=gen, device="cuda", dtype=dtype)
             out = torch.empty_like(x)
             what = f"{name.split()[0]} {tag} {str(dtype)[6:]}"
             err = _sparse_pair(lambda: cell.spmv_ell(S, x), lambda: cell.spmv_ell_plain(S, x), dtype, what, False)
+            note = ""
+            if name in WIDE13:  # the relabelled form gives K11/K12's bits on the same matrix
+                E = cell.ell_slots(A)
+                first = cell.spmv_ell(E, x)
+                y, again = cell.spmv_ell(S, x), cell.spmv_ell(S, x)
+                torch.cuda.synchronize()
+                if not (torch.equal(_bits(y), _bits(first)) and torch.equal(_bits(y), _bits(again))):
+                    raise AssertionError(f"{what}: the relabelled form differs from {k_ell.split()[0]}'s launch "
+                                         "or from its own second launch")
+                note = (f"; bit for bit {k_ell.split()[0]}'s, which takes "
+                        f"{_graph_ms(lambda: cell.spmv_ell(E, x, out=out)) * 1e3:.1f} us")
             for key in {name, k_ell}:
                 stats[key]["max_abs_err"] = max(stats[key]["max_abs_err"], err)
-            timed = tag.startswith("128") or (name in WIDE and f32)
+            timed = tag.startswith("128") or name in WIDE
             st = stats[name] if timed else {}
             _time_pair(st, lambda: cell.spmv_ell(S, x, out=out), lambda: cell.spmv_ell_plain(S, x, out=out))
             nbytes = _ell_bytes(S)
@@ -1258,7 +1309,7 @@ def phase_sparse_kernels(card: str) -> dict:
                 del csr
             say(f"[sparse] {what}: ok, max err {err:.2e}; width {S.width}; {st['ms'] * 1e3:.1f} us vs plain "
                 f"{st['plain_ms'] * 1e3:.1f} ({_gbs(nbytes, st['ms']):.0f} vs {_gbs(nbytes, st['plain_ms']):.0f} "
-                f"GB/s) [{card}]")
+                f"GB/s){note} [{card}]")
     return stats
 
 
@@ -1314,11 +1365,29 @@ def _main_path_slice3() -> None:
             _against_stencil(res, ref, dtype, what)
 
 
+def _window_us(A, b, x0) -> float:
+    """us per iteration of one EXPLICIT_ITERS-iteration solve on auto, CUDA
+    events around the solve alone (its layout built before)."""
+    from hpccg_tpu_torch import make_cg
+
+    solve = make_cg(A, max_iter=EXPLICIT_ITERS, tolerance=0.0)
+    solve(b, x0)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    solve(b, x0)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) * 1e3 / EXPLICIT_ITERS
+
+
 def _main_path_wide_scatter() -> None:
-    """The randomly permuted 128^3 float32 stencil, the wide-scatter class
-    of K13/K14: through auto_structure (ell+rcm) and solved in its basis, and
-    solved as loaded; x in the permuted problem's order against the stencil
-    solve's."""
+    """The randomly permuted 128^3 stencil, the wide-scatter class of K13:
+    in float32 through auto_structure (ell+rcm) and solved in its basis,
+    then solved as loaded (K13's kernel, relabelled) in float32 and
+    float64; x in the permuted problem's order against the stencil solve's.
+    Prints each solve's us per iteration (a CUDA-event window around one
+    solve)."""
     twin, perm0, op, perm, report = _permuted_128()
     if report.format != "ell+rcm":
         raise AssertionError(f"permuted 128^3: expected ell+rcm, got {report.format}")
@@ -1326,34 +1395,82 @@ def _main_path_wide_scatter() -> None:
     ref = dataclasses.replace(ref, x=ref.x[torch.from_numpy(perm0).cuda()])  # in the twin's order
     index = torch.from_numpy(perm).cuda()
     b, x0 = twin.b.cuda(), twin.x0.cuda()
-    res, _ = _explicit_solve(op.to("cuda"), b[index], x0[index], "permuted 128^3 f32 ell+rcm auto")
+    rcm = op.to("cuda")
+    res, _ = _explicit_solve(rcm, b[index], x0[index], "permuted 128^3 f32 ell+rcm auto")
     x = torch.empty_like(res.x)
     x[index] = res.x  # the solve basis back to the twin's order
     _against_stencil(dataclasses.replace(res, x=x), ref, torch.float32, "permuted 128^3 f32 ell+rcm")
-    res, _ = _explicit_solve(twin.A.to("cuda"), b, x0, "permuted 128^3 f32 ELL as loaded auto")
-    _against_stencil(res, ref, torch.float32, "permuted 128^3 f32 ELL as loaded")
+    window = {"ell+rcm": _window_us(rcm, b[index], x0[index])}
+    for dtype in SPARSE_DTYPES:
+        A = _permuted_128_on_card(dtype)
+        bd, x0d = b.to(dtype), x0.to(dtype)
+        what = f"permuted 128^3 {str(dtype)[6:]} ELL as loaded"
+        t0 = time.perf_counter()
+        res, delta = _explicit_solve(A, bd, x0d, f"{what} auto")
+        kernel = K13 if dtype == torch.float32 else K13D
+        if delta[kernel] < EXPLICIT_ITERS:  # the initial Ap and one per iteration
+            raise AssertionError(f"{what}: {kernel} launched {delta[kernel]} times")
+        say(f"[main] {what}: the solve with its layout (the relabel rule's pre-test on the card, RCM on the host "
+            f"once per matrix) took {time.perf_counter() - t0:.1f} s")
+        if dtype == torch.float32:
+            _against_stencil(res, ref, dtype, what)
+        else:
+            sref = _stencil_reference(dtype)
+            _against_stencil(res, dataclasses.replace(sref, x=sref.x[torch.from_numpy(perm0).cuda()]), dtype,
+                             what)
+        window[f"as loaded {str(dtype)[6:]}"] = _window_us(A, bd, x0d)
+    say("[main] permuted 128^3 solves, us/iter (CUDA-event window around one 50-iteration solve): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in window.items()))
+
+
+def _main_path_wide_inplace() -> None:
+    """The permuted 128^3 twin as loaded on the ell-allgather tier at
+    FILE_NDEV ranks of the card, float32 and float64: each rank's rows
+    gather from the whole of x, in place, on K11/K12 (K14's kernel; a
+    rank's block is never relabelled); x in the twin's order against the
+    stencil solve's."""
+    mesh = _one_card(FILE_NDEV)
+    twin, perm0 = _permuted_128()[:2]
+    order = torch.from_numpy(perm0).cuda()
+    for dtype in SPARSE_DTYPES:
+        what = f"permuted 128^3 {str(dtype)[6:]} as loaded, {FILE_NDEV} x ell-allgather"
+        kernel = K14 if dtype == torch.float32 else K14D
+        sp = _sharded_file_problem(_permuted_128_on_card(dtype), mesh, twin.b.to("cuda", dtype))
+        before = _counts()
+        res = _file_tier("ell-allgather")(mesh, max_iter=EXPLICIT_ITERS)(sp.A, sp.b, sp.x0)
+        torch.cuda.synchronize()
+        delta = {n: c - before[n] for n, c in _counts().items()}
+        if delta[kernel] != FILE_NDEV * EXPLICIT_ITERS or delta[K13] or delta[K13D]:
+            raise AssertionError(f"{what}: launches {delta}")
+        ref = _stencil_reference(dtype)
+        res = dataclasses.replace(res, x=torch.cat(res.x)[: twin.total_nrow])
+        _against_stencil(res, dataclasses.replace(ref, x=ref.x[order]), dtype, what)
+        say(f"[main] {what}: niters {int(res.niters)} normr {float(res.normr):.6e}; launches {_launch_note(delta)}")
 
 
 def phase_main_path() -> dict:
-    """Slice 1's main path, slice 2's, slice 3's and its wide-scatter solves,
-    slice 4's distributed solves, slice 5's distributed file-mode solves,
-    slice 6's bf16 K1-K4 path and slice 7's bf16 collective and file-mode
-    solves, slice 8's 256^3 float32 pallas_fused solve and slice 10's 4 x
-    100^3 collective solves, each with its own counts; the launches reported
-    for each kernel are those of its own run. Slice 9's kernels (K5/K6 at
-    256^3, float32 and bfloat16) run on slice 2's path and are read from its
-    counts, slice 11's (K17 in float64) on slice 5's."""
+    """Slice 1's main path, slice 2's, slice 3's and its wide-scatter solves
+    (as loaded on one device, K13, and in place on the ell-allgather tier,
+    K14), slice 4's distributed solves, slice 5's distributed file-mode
+    solves, slice 6's bf16 K1-K4 path and slice 7's bf16 collective and
+    file-mode solves, slice 8's 256^3 float32 pallas_fused solve and slice
+    10's 4 x 100^3 collective solves, each with its own counts; the launches
+    reported for each kernel are those of its own run. Slice 9's kernels
+    (K5/K6 at 256^3, float32 and bfloat16) run on slice 2's path and are
+    read from its counts, slice 11's (K17 in float64) on slice 5's."""
     first = _drive(_main_path_slice1, SLICE1)
     second = _drive(_main_path_slice2, SLICE2 + SLICE9)
     third = _drive(_main_path_slice3, [K9, K10, K11, K12])
-    wide = _drive(_main_path_wide_scatter, WIDE)
+    wide = _drive(_main_path_wide_scatter, WIDE13)
+    inplace = _drive(_main_path_wide_inplace, WIDE14)
     fourth = _drive(_main_path_slice4, SLICE4)
     fifth = _drive(_main_path_slice5, SLICE5 + SLICE11)
     sixth = _drive(_main_path_slice6, SLICE6)
     seventh = _drive(_main_path_slice7, SLICE7)
     eighth = _drive(_main_path_slice8, SLICE8)
     tenth = _drive(_main_path_slice10, SLICE10)
-    runs = [(SLICE1, first), (SLICE2, second), ([K9, K10, K11, K12], third), (WIDE, wide), (SLICE4, fourth),
+    runs = [(SLICE1, first), (SLICE2, second), ([K9, K10, K11, K12], third), (WIDE13, wide), (WIDE14, inplace),
+            (SLICE4, fourth),
             (SLICE5, fifth), (SLICE6, sixth), (SLICE7, seventh), (SLICE8, eighth), (SLICE9, second),
             (SLICE10, tenth), (SLICE11, fifth)]
     return {n: counts[n] for names, counts in runs for n in names}
@@ -1532,8 +1649,8 @@ def phase_timing_explicit(card: str, stats: dict) -> None:
     """us per CG iteration at 128^3, float32 and float64, slope-timed (legs
     of 17 and 145 iterations): DIA and ELL on auto (K9-K12), the ELL on
     stencil (its plain version), and the randomly permuted matrix on auto as
-    loaded and after RCM; then K9-K12's device time per launch from phase 3
-    with effective GB/s."""
+    loaded (K13's kernel, with its busy share) and after RCM; then
+    K9-K12's device time per launch from phase 3 with effective GB/s."""
     from hpccg_tpu_torch import make_cg
     from hpccg_tpu_torch.utils.timing import time_loop_slope
 
@@ -1544,7 +1661,7 @@ def phase_timing_explicit(card: str, stats: dict) -> None:
         prob, dia = _explicit_128(dtype)
         cells = [("DIA auto", dia, prob.b, prob.x0, "auto"), ("ELL auto", prob.A, prob.b, prob.x0, "auto"),
                  ("ELL stencil (plain)", prob.A, prob.b, prob.x0, "stencil"),
-                 ("permuted ELL as loaded, auto", _cast(twin.A, dtype), twin.b.to("cuda", dtype),
+                 ("permuted ELL as loaded, auto", _permuted_128_on_card(dtype), twin.b.to("cuda", dtype),
                   twin.x0.to("cuda", dtype), "auto"),
                  ("permuted ELL after RCM, auto", _cast(rcm, dtype), twin.b[index].to("cuda", dtype),
                   twin.x0[index].to("cuda", dtype), "auto")]
@@ -1560,6 +1677,10 @@ def phase_timing_explicit(card: str, stats: dict) -> None:
             if backend == "auto" and not tag.startswith("permuted"):
                 _busy_share(run, EXPLICIT_ITERS, card, f"128^3 {str(dtype)[6:]} {tag} one {EXPLICIT_ITERS}-iteration "
                             "solve", "dia_spmv_kernel" if tag.startswith("DIA") else "ell_spmv_kernel")
+            if tag.startswith("permuted ELL as loaded"):  # the layout (and its host RCM) built once, before
+                solve = make_cg(A, max_iter=EXPLICIT_ITERS, tolerance=0.0)
+                _busy_share(lambda k: solve(b, x0), EXPLICIT_ITERS, card, f"128^3 {str(dtype)[6:]} {tag} one "
+                            f"{EXPLICIT_ITERS}-iteration solve, its layout built before", "scatter_spmv_kernel")
     for name, model in ((K9, _dia_bytes(_explicit_128(torch.float32)[1])),
                         (K10, _dia_bytes(_explicit_128(torch.float64)[1])),
                         (K11, _ell_bytes(_explicit_128(torch.float32)[0].A)),

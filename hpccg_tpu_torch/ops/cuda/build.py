@@ -61,6 +61,8 @@ _SIGNATURES = {
     "hpccg_ell_f32": [_P, _P, _I, _P, _P, _LL, _P],
     "hpccg_ell_f64": [_P, _P, _I, _P, _P, _LL, _P],
     "hpccg_ell_bf16": [_P, _P, _I, _P, _P, _LL, _P],
+    "hpccg_ell_scatter_f32": [_P, _P, _I, _P, _P, _P, _P, _LL, _P],
+    "hpccg_ell_scatter_f64": [_P, _P, _I, _P, _P, _P, _P, _LL, _P],
     "hpccg_collective_geometry": [_I] * 7 + [_P],
     "hpccg_collective_layout": [_I],
     "hpccg_collective_f32": [_P] * 4 + [_I] * 4 + [_LL, _I, _I, _LL] + [_I] * 3 + [ctypes.c_double, _LL, _P],

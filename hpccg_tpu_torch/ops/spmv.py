@@ -7,7 +7,7 @@ Backends:
   dispatches on the operator's type;
 - "pallas": the CUDA stencil kernel (K1), the counterpart of the JAX
   package's Pallas stencil; on a CPU tensor its plain version. The explicit
-  matrices' kernels (K9-K12) run on a layout built once per matrix
+  matrices' kernels (K9-K14) run on a layout built once per matrix
   (``ops/cuda/dia.py::prepare_dia``, ``ops/cuda/ell.py::prepare_ell``);
   ``solver.make_cg`` builds and holds it.
 """

@@ -12,6 +12,14 @@ iteration. ``rcm_permutation`` computes the reverse Cuthill-McKee order
 ``auto_structure`` picks the representation an explicit matrix solves in on
 Hopper: DIA (kernel K9/K10) or ELL (the gather kernel K11/K12).
 
+This module owns every reverse Cuthill-McKee decision. Where the caller
+allows a change of basis (the CLI's file mode, ``auto_structure``), the
+matrix is permuted once. Where it does not (``make_cg`` on a matrix as
+loaded, ``--no-reorder``), ``relabel_order`` says whether the ELL kernel
+should gather in RCM order all the same: K13's kernel relabels x at each
+launch and stores each row's sum back at its row, so the solve keeps its
+basis and K11's bits (``ops/cuda/ell.py``).
+
 The JAX package's chooser weighs TPU cost models (the DIA slot rate, the
 gather-window fit, the strip-stack and dynamic-window models) that describe
 a chip without a hardware gather; they are not ported. Hopper gathers
@@ -23,6 +31,8 @@ the representation that solves goes to the device.
 from __future__ import annotations
 
 import dataclasses
+import math
+import weakref
 from typing import Optional, Tuple
 
 import numpy as np
@@ -205,3 +215,115 @@ def auto_structure(
     return A, None, StructureReport(
         "ell", None, band0.bandwidth, band1.bandwidth, None,
         f"no band: RCM left bandwidth {band0.bandwidth} -> {band1.bandwidth}; ELL gather as loaded ({why})")
+
+
+# The relabel rule (PERF.md, PR 12: the band and grid sweeps on the card).
+# A square float32/float64 matrix as loaded is gathered in RCM order when
+# the median group of GROUP consecutive rows gathers from at least
+# RELABEL_SPAN bytes of x (permuted stencils: the relabelled form lost to
+# K11 at 55 kB and won from 110 kB up) and RCM shrinks that span at least
+# RELABEL_GAIN times (a random band gains nothing from RCM: relabelled it
+# ran 23-30% slower than K11's loop).
+RELABEL_SPAN = 96 << 10
+RELABEL_GAIN = 4.0
+GROUP = 32
+
+
+def group_span(cols: torch.Tensor, valid: torch.Tensor, itemsize: int) -> float:
+    """The median, over the groups of GROUP consecutive rows, of the bytes of
+    x between the lowest and the highest column the group gathers (on the
+    tensors' device)."""
+    n, width = cols.shape
+    if n == 0 or width == 0 or not bool(valid.any()):
+        return 0.0
+    pad = -n % GROUP
+    if pad:
+        cols = torch.cat([cols, cols.new_zeros((pad, width))])
+        valid = torch.cat([valid, valid.new_zeros((pad, width))])
+    cols, valid = cols.view(-1, GROUP * width), valid.view(-1, GROUP * width)
+    lo = torch.where(valid, cols, torch.iinfo(cols.dtype).max).amin(dim=1)
+    hi = torch.where(valid, cols, -1).amax(dim=1)
+    live = hi >= 0
+    return float(((hi - lo + 1)[live].double() * itemsize).median())
+
+
+def bfs_depth(A: EllMatrix, limit: Optional[int] = None) -> int:
+    """The levels of a breadth-first search of A's graph from a
+    pseudo-peripheral row (the last row reached from row 0), as RCM's own
+    search starts; on A's device, each level expanding its frontier's
+    columns. With ``limit``, the search stops where the answer's side of
+    ``limit`` is known: at ``limit`` levels, or after the search from row 0
+    when twice its depth (a bound on any search's) stays below ``limit``."""
+    n = A.local_nrow
+    seen = torch.zeros(n, dtype=torch.bool, device=A.cols.device)
+    mark = torch.zeros_like(seen)
+
+    def search(start: int):
+        seen.zero_()
+        seen[start] = True
+        frontier, depth = torch.tensor([start], device=seen.device), 0
+        while limit is None or depth < limit:
+            mark.zero_()
+            mark[A.cols[frontier][A.valid[frontier]].long()] = True
+            mark.logical_and_(~seen)
+            reached = mark.nonzero().squeeze(1)
+            if reached.numel() == 0:
+                break
+            seen.logical_or_(mark)
+            frontier, depth = reached, depth + 1
+        return depth, int(frontier[-1])
+
+    depth, last = search(0)
+    if limit is not None and (depth >= limit or 2 * depth < limit):
+        return depth
+    return max(depth, search(last)[0])
+
+
+_RCM = {}  # id(A.cols) -> (weak reference to A.cols, (cols, valid versions), RCM permutation)
+
+
+def _rcm_cached(A: EllMatrix) -> np.ndarray:
+    """A's reverse Cuthill-McKee order, computed once per matrix on the
+    host (kept while A.cols lives and neither A.cols nor A.valid changes)."""
+    key = (A.cols._version, A.valid._version)
+    hit = _RCM.get(id(A.cols))
+    if hit is not None and hit[0]() is A.cols and hit[1] == key:
+        return hit[2]
+    perm = rcm_permutation(A.to("cpu"))
+    _RCM[id(A.cols)] = (weakref.ref(A.cols), key, perm)
+    weakref.finalize(A.cols, _RCM.pop, id(A.cols), None)
+    return perm
+
+
+def relabel_order(A: EllMatrix) -> Optional[np.ndarray]:
+    """The RCM order in which the ELL kernel should gather A as loaded (K13's
+    relabelled kernel), or None where K11/K12 gather A in its own order.
+
+    Only a square float32 or float64 matrix qualifies (bf16 stays on K11, as
+    the JAX package's chooser never builds a gather tier for 2-byte values,
+    ``hpccg_tpu/reorder.py:257-259``), and only where its median group of
+    rows spans at least RELABEL_SPAN bytes of x. A pre-test on the device
+    then bounds what RCM can reach before the host computes it: RCM's groups
+    gather from about three levels of a breadth-first search, ``3 n /
+    depth`` rows (3.0-3.4 times that on permuted stencils, more on random
+    bands), so a matrix whose search is shallow (a random band: a few
+    levels) cannot gain RELABEL_GAIN and is never sent to the host. Where the
+    pre-test passes, the RCM order (computed once per matrix) is kept if it
+    shrinks the median span RELABEL_GAIN times."""
+    n = A.local_nrow
+    if A.dtype not in (torch.float32, torch.float64) or A.start_row != 0 or (A.total_nrow or n) != n:
+        return None
+    size = A.vals.element_size()
+    span = group_span(A.cols, A.valid, size)
+    if span < RELABEL_SPAN:
+        return None
+    levels = math.ceil(3 * n * size * RELABEL_GAIN / span)
+    if bfs_depth(A, levels) < levels:
+        return None
+    perm = _rcm_cached(A)
+    index = torch.from_numpy(perm).to(A.device)
+    inv = torch.empty_like(index)
+    inv[index] = torch.arange(n, device=A.device)
+    if group_span(inv[A.cols.long()][index], A.valid[index], size) * RELABEL_GAIN > span:
+        return None
+    return perm

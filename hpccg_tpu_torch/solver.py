@@ -74,7 +74,9 @@ Explicit matrices (:class:`EllMatrix`, :class:`DiaMatrix`; JAX
 ``solver.py:394-423``, ``:500-528``, ``:724-739``): ``make_cg`` builds the
 kernel's layout once (``prepare_dia`` / ``prepare_ell``) and runs
 ``cg_solve`` with the matrix's own kernel as the matvec (K9/K10 for DIA,
-K11/K12 for ELL) and the CUDA finalize step; the dots and axpys stay torch,
+K11/K12 for ELL, K13 for a scattered square ELL that RCM narrows,
+``reorder.relabel_order``) and the CUDA finalize step; the dots and axpys
+stay torch,
 as they stay XLA in JAX. ``auto``, ``ell`` and ``dia`` all run the matrix's
 own kernel (``ell`` on a DIA matrix runs DIA: JAX's native dispatch);
 ``stencil`` runs the plain versions with ``cg_finalize_plain``, the plain

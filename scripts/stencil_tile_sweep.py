@@ -91,9 +91,10 @@ def copy_with_defines(dst: Path, source: str, defines: dict) -> Path:
     return dst
 
 
-def build_and_time(dirs: dict, order: list, timer: str) -> None:
-    """Build every copy (three at a time), then run ``timer`` in each, in
-    the order given and again in reverse, printing what it prints."""
+def build_and_time(dirs: dict, order: list, timer: str, args=()) -> None:
+    """Build every copy (three at a time), then run ``timer`` (with
+    ``args`` as its arguments) in each, in the order given and again in
+    reverse, printing what it prints."""
     def build(item):
         variant, cwd = item
         proc = subprocess.run([sys.executable, "-c", BUILD], cwd=cwd, capture_output=True, text=True, timeout=900)
@@ -104,8 +105,8 @@ def build_and_time(dirs: dict, order: list, timer: str) -> None:
             print(f"--- build {variant} (rc {proc.returncode}): "
                   f"{proc.stdout.strip() or proc.stderr[-3000:]} s", flush=True)
     for variant in order + order[::-1]:
-        proc = subprocess.run([sys.executable, "-c", timer], cwd=dirs[variant], capture_output=True, text=True,
-                              timeout=600)
+        proc = subprocess.run([sys.executable, "-c", timer, *args], cwd=dirs[variant], capture_output=True,
+                              text=True, timeout=600)
         print(f"--- {variant} (rc {proc.returncode}): {proc.stdout.strip() or proc.stderr[-3000:]}", flush=True)
 
 

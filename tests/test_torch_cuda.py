@@ -308,7 +308,7 @@ def test_whole_solve_and_dd_backends_match_stencil(cuda_device, backend):
 # ------------------------------------------------- explicit matrices, K9-K12
 
 from hpccg_tpu_torch.models.stencil import generate_ell  # noqa: E402
-from hpccg_tpu_torch.operators import DiaMatrix  # noqa: E402
+from hpccg_tpu_torch.operators import DiaMatrix, EllMatrix  # noqa: E402
 from hpccg_tpu_torch.ops.cuda import dia as cdia  # noqa: E402
 from hpccg_tpu_torch.ops.cuda import ell as cell  # noqa: E402
 from hpccg_tpu_torch.reorder import permute_ell  # noqa: E402
@@ -388,6 +388,109 @@ def test_sparse_wrappers_refuse_bad_input(cuda_device):
     bad = dataclasses.replace(A, cols=A.cols.clone().fill_(A.local_nrow))
     with pytest.raises(ValueError, match="outside"):
         cell.prepare_ell(bad)
+
+
+def _scatter_matrix(case, dtype, device):
+    """A wide scatter on ``device``: a randomly permuted 48^3 stencil (x of
+    442 kB in float32) or 100^3 stencil (x of 4 MB), or a random band of n =
+    10^6 within +-3*10^5 (K14's class)."""
+    if case != "band":
+        g = 48 if case == "permuted" else 100
+        A = generate_ell(ProblemConfig(g, g, g, dtype=dtype), "cpu").A
+        return permute_ell(A, torch.randperm(A.local_nrow, generator=torch.Generator().manual_seed(3)).numpy()
+                           ).to(device)
+    n, bw = 1_000_000, 300_000
+    gen = torch.Generator().manual_seed(4)
+    rows = torch.arange(n)[:, None]
+    cols = (rows + torch.randint(-bw, bw + 1, (n, 9), generator=gen)).clamp_(0, n - 1)
+    cols[:, 0] = rows[:, 0]
+    vals = torch.rand((n, 9), generator=gen, dtype=dtype) * 0.9 - 1.0
+    vals[:, 0] = 10.0
+    valid = torch.rand((n, 9), generator=gen) >= 0.15
+    valid[:, 0] = True
+    return EllMatrix(vals=torch.where(valid, vals, 0).to(device),
+                     cols=torch.where(valid, cols, 0).to(torch.int32).to(device), valid=valid.to(device),
+                     start_row=0, total_nrow=n)
+
+
+def _scatter_launches() -> int:
+    return cell.spmv_ell.launches_scatter_f32 + cell.spmv_ell.launches_scatter_f64
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("form", ["relabelled", "in place"])
+@pytest.mark.parametrize("case", ["permuted", "band", "large x"])
+def test_scatter_kernel_matches_plain_and_k11(cuda_device, case, form, dtype):
+    """The wide-scatter classes in both forms, relabelled (K13's kernel, in
+    the stencils' RCM order, a random order for the band) and in place
+    (K11/K12): within 1e-13 / 1e-5 of
+    max|y| of the form's plain version, bit for bit K11/K12's launch on the
+    same matrix (the same sums in the same order), two launches
+    bit-identical; each form's launches are counted on its own counters per
+    dtype. The chooser relabels the permuted stencils and keeps the random
+    band (K14's class) on K11/K12."""
+    from hpccg_tpu_torch.reorder import rcm_permutation
+
+    A = _scatter_matrix(case, dtype, cuda_device)
+    relabel = form == "relabelled"
+    # any order holds the kernel to K11's bits; a random one spares the band the host's RCM
+    perm = torch.randperm(A.local_nrow).numpy() if case == "band" else rcm_permutation(A)
+    S = cell.prepare_scatter(A, perm) if relabel else cell.ell_slots(A)
+    chosen = cell.prepare_ell(A)
+    assert type(chosen) is (cell.EllSlots if case == "band" else cell.ScatterEll)
+    x = torch.randn(A.local_nrow, dtype=dtype, device=cuda_device)
+    want = cell.spmv_ell(cell.ell_slots(A), x)
+    before, k11 = _scatter_launches(), _launches(cell.spmv_ell)
+    y, again = cell.spmv_ell(S, x), cell.spmv_ell(S, x)
+    torch.cuda.synchronize()
+    assert _scatter_launches() == before + 2 * relabel
+    assert _launches(cell.spmv_ell) == k11 + 2 * (not relabel)
+    if relabel:
+        attr = "launches_scatter_f32" if dtype == torch.float32 else "launches_scatter_f64"
+        assert getattr(cell.spmv_ell, attr) >= 2
+    _vec(y, cell.spmv_ell_plain(S, x))
+    assert torch.equal(y, want) and torch.equal(y, again)
+
+
+def test_scatter_kernel_on_rank_blocks(cuda_device):
+    """A rank's rows of a permuted matrix with global columns (ncols != n,
+    the ell-allgather tier's blocks) stay on K11's layout, gathered in
+    place; the relabelled layout needs the square matrix. On x views at an
+    odd element offset, bit for bit K11's launch on the block."""
+    from hpccg_tpu_torch.parallel import cg as pcg
+
+    A = _scatter_matrix("permuted", torch.float32, cuda_device)
+    n = A.local_nrow
+    for blk in pcg.shard_matrix(A, make_mesh(4, devices=[cuda_device] * 4)):
+        S = cell.prepare_ell(blk)
+        assert type(S) is cell.EllSlots and S.ncols == n != S.local_nrow
+        with pytest.raises(ValueError, match="square"):
+            cell.prepare_scatter(blk, torch.arange(blk.local_nrow).numpy())
+        x = torch.randn(n + 1, device=cuda_device)[1:]
+        y, again = cell.spmv_ell(S, x), cell.spmv_ell(S, x)
+        torch.cuda.synchronize()
+        _vec(y, cell.spmv_ell_plain(S, x))
+        assert torch.equal(y, again)
+
+
+def test_scatter_solve_runs_its_kernel(cuda_device):
+    """make_cg on the permuted 48^3 stencil as loaded launches K13/K14's
+    kernel once per matvec, and the solve gives the bits of the same solve
+    on K11's layout (the matvecs agree bit for bit)."""
+    prob = generate_ell(ProblemConfig(48, 48, 48), "cpu")
+    perm = torch.randperm(prob.total_nrow, generator=torch.Generator().manual_seed(3))
+    A = permute_ell(prob.A, perm.numpy()).to(cuda_device)
+    b, x0 = prob.b[perm].to(cuda_device), prob.x0[perm].to(cuda_device)
+    before = cell.spmv_ell.launches_scatter_f64
+    res = make_cg(A, max_iter=30, tolerance=0.0)(b, x0)
+    torch.cuda.synchronize()
+    assert cell.spmv_ell.launches_scatter_f64 - before >= 30
+    from hpccg_tpu_torch.solver import cg_solve
+    from hpccg_tpu_torch.config import scalar_dtype
+
+    ref = cg_solve(cell.ell_slots(A).matvec, b, x0, scalars=scalar_dtype(A.dtype), max_iter=30, tolerance=0.0)
+    assert int(res.niters) == int(ref.niters) == 29
+    assert torch.equal(res.trace, ref.trace) and torch.equal(res.x, ref.x)
 
 
 @pytest.mark.parametrize("fmt", ["ell", "dia"])
