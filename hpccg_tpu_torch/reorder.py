@@ -25,7 +25,9 @@ gather-window fit, the strip-stack and dynamic-window models) that describe
 a chip without a hardware gather; they are not ported. Hopper gathers
 natively, so the rule here is the bytes one SpMV streams (see
 :func:`auto_structure`). Structure analysis runs on host numpy arrays; only
-the representation that solves goes to the device.
+the representation that solves goes to the device. With the port's tracing
+on (``utils.trace``), ``auto_structure`` and its steps (``reorder.band``,
+``reorder.to_dia``, ``reorder.rcm``, ``reorder.permute``) record spans.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ import numpy as np
 import torch
 
 from hpccg_tpu_torch.operators import EllMatrix, unique_offsets
+from hpccg_tpu_torch.utils import trace
 
 
 def _rcm_numpy(indptr: np.ndarray, indices: np.ndarray, n: int) -> np.ndarray:
@@ -68,6 +71,7 @@ def _rcm_numpy(indptr: np.ndarray, indices: np.ndarray, n: int) -> np.ndarray:
     return order[::-1].copy()
 
 
+@trace.spanned("reorder.rcm")
 def rcm_permutation(A: EllMatrix) -> np.ndarray:
     """perm such that B = A[perm][:, perm] has (near-)minimal bandwidth:
     new row i is old row perm[i]."""
@@ -88,6 +92,7 @@ def rcm_permutation(A: EllMatrix) -> np.ndarray:
     return np.ascontiguousarray(reverse_cuthill_mckee(sym, symmetric_mode=True), dtype=np.int64)
 
 
+@trace.spanned("reorder.permute")
 def permute_ell(A: EllMatrix, perm: np.ndarray) -> EllMatrix:
     """B = P A P^T in ELL form, B[i, j] = A[perm[i], perm[j]], on the host
     (CPU tensors over numpy arrays)."""
@@ -130,6 +135,7 @@ class _Band:
     stored_zeros: bool
 
 
+@trace.spanned("reorder.band")
 def _band(A: EllMatrix) -> _Band:
     rows, cols, vals = A.to_coo()
     offs = cols.astype(np.int64) - rows
@@ -152,6 +158,7 @@ def dia_fits(ndiag: int, n: int, nnz: int, itemsize: int, *, max_diags: int, max
             and ndiag * n * itemsize <= max_storage_bytes)
 
 
+@trace.spanned("reorder.auto_structure")
 def auto_structure(
     A: EllMatrix,
     *,
@@ -193,7 +200,9 @@ def auto_structure(
         return A, None, StructureReport("ell", None, band0.bandwidth, band0.bandwidth, None, STORED_ZEROS_REASON)
     inflation0 = band0.ndiag * n / max(nnz, 1)
     if inflation0 <= 4.0 and dia_fits(band0.ndiag, n, nnz, s, **budgets):
-        return A.to_dia(max_diags=max_diags), None, StructureReport(
+        with trace.span("reorder.to_dia"):
+            dia = A.to_dia(max_diags=max_diags)
+        return dia, None, StructureReport(
             "dia", band0.ndiag, band0.bandwidth, band0.bandwidth, inflation0,
             f"banded as loaded: {band0.ndiag} diagonals")
     perm = rcm_permutation(A)
@@ -203,7 +212,9 @@ def auto_structure(
     dia_bytes, ell_bytes = band1.ndiag * n * s, A.width * n * (s + 4)
     rcm = f"RCM reduced bandwidth {band0.bandwidth} -> {band1.bandwidth}"
     if dia_fits(band1.ndiag, n, nnz, s, **budgets) and dia_bytes < ell_bytes:
-        return B.to_dia(max_diags=max_diags).to(A.device), perm, StructureReport(
+        with trace.span("reorder.to_dia"):
+            dia = B.to_dia(max_diags=max_diags)
+        return dia.to(A.device), perm, StructureReport(
             "dia+rcm", band1.ndiag, band0.bandwidth, band1.bandwidth, inflation1,
             f"{rcm}; {band1.ndiag} diagonals at {inflation1:.1f}x slot inflation, {dia_bytes} B per SpMV "
             f"against ELL's {ell_bytes}")

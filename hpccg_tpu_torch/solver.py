@@ -18,7 +18,9 @@ The host launches iterations and reads the ``active`` flag once every
 every kernel launched after the exit reads ``active == 0`` and writes
 nothing, and the finalize step zeroes alpha and beta at the exit, so the
 plain-torch axpys of the ``pallas`` backend are no-ops too. The result is
-that of the JAX package's ``while_loop``.
+that of the JAX package's ``while_loop``. With the port's tracing on
+(``utils.trace``), ``cg_solve`` and ``cg_solve_fused`` record their start,
+each chunk of launches, each read of the flag and the result as spans.
 
 Backends (the JAX package's names, so ``--backend`` means the same):
 
@@ -123,6 +125,7 @@ from hpccg_tpu_torch.ops.cuda.stencil import (
     update_p_apply,
 )
 from hpccg_tpu_torch.ops.cuda.streamkernel import cg_solve_stream
+from hpccg_tpu_torch.utils import trace
 
 BACKENDS = ("auto", "stencil", "pallas", "pallas_fused", "pallas_dd", "pallas_v1", "megakernel",
             "streamkernel")
@@ -162,8 +165,34 @@ def _result(x, st: CGScalars) -> CGResult:
     )
 
 
-def _stopped(st, it: int, check_every: int) -> bool:
-    return it % check_every == 0 and int(st.active.item()) == 0
+def _stopped(st, it: int, check_every: int, phases=None) -> bool:
+    if it % check_every:
+        return False
+    if phases is not None:
+        return phases.stopped(st)
+    return int(st.active.item()) == 0
+
+
+class _Phases:
+    """The spans of one traced solve's host loop: ``solver.start`` from
+    entry to the first read of the exit flag, ``solver.exit_read`` around
+    each read (the host waits there until the card reaches the flag), and
+    ``solver.issue`` around the launches between two reads."""
+
+    def __init__(self):
+        self.phase = trace.span("solver.start").__enter__()
+
+    def stopped(self, st) -> bool:
+        self.phase.__exit__(None, None, None)
+        with trace.span("solver.exit_read"):
+            done = int(st.active.item()) == 0
+        self.phase = None if done else trace.span("solver.issue").__enter__()
+        return done
+
+    def close(self) -> None:
+        if self.phase is not None:
+            self.phase.__exit__(None, None, None)
+            self.phase = None
 
 
 # ------------------------------------------------------------ sharded vectors
@@ -264,6 +293,7 @@ def cg_solve(
     a flat tensor or a tuple of shards. ``finalize`` advances the device
     scalars (``cg_finalize_plain`` keeps the whole solve plain torch).
     """
+    phases = _Phases() if trace.enabled() else None
     flat = isinstance(b, torch.Tensor)
     bs, x0s = _shards(b), _shards(x0)
     dev = bs[0].device
@@ -280,7 +310,7 @@ def cg_solve(
     x = tuple(v.clone() for v in x0s)
     p = x0s
     for it in range(max_iter - 1):
-        if _stopped(st, it, check_every):
+        if _stopped(st, it, check_every, phases):
             break
         p = tuple(_xpby(ri, st.beta.to(ri.device), pi) for ri, pi in zip(r, p))
         if pap is not None:
@@ -294,7 +324,10 @@ def cg_solve(
             xi.addcmul_(alpha, pi)
             ri.addcmul_(alpha, ai, value=-1)
         finalize(_dot_parts(r, r, dev, sdt), st, STEP_RR)
-    return _result(x[0] if flat else x, st)
+    if phases is not None:
+        phases.close()
+    with trace.span("solver.finish"):
+        return _result(x[0] if flat else x, st)
 
 
 def cg_solve_fused(
@@ -316,6 +349,7 @@ def cg_solve_fused(
     ``halo2(vs)`` / ``halo4(rs, ps)`` give each rank's external z-planes
     ((2, ny, nx) of v, or (4, ny, nx) of r and p; ``parallel.halo``), None
     on a single device."""
+    phases = _Phases() if trace.enabled() else None
     flat = isinstance(b, torch.Tensor)
     bs, x0s = _shards(b), _shards(x0)
     devs = [v.device for v in bs]
@@ -336,7 +370,7 @@ def cg_solve_fused(
     part3 = RankPartials([num_partials(op, d) for d in devs], sdt, devs)
     part4 = RankPartials([num_update_partials(v.numel(), v.device) for v in bs], sdt, devs)
     for it in range(max_iter - 1):
-        if _stopped(st, it, check_every):
+        if _stopped(st, it, check_every, phases):
             break
         for i, h in enumerate(halo4(r, p)):
             d = devs[i]
@@ -348,7 +382,10 @@ def cg_solve_fused(
             d = devs[i]
             update_x_r(x[i], r[i], p[i], Ap[i], st.alpha.to(d), partials=part4.parts[i], active=st.active.to(d))
         cg_finalize(part4.gather(), st, STEP_RR)
-    return _result(x[0] if flat else x, st)
+    if phases is not None:
+        phases.close()
+    with trace.span("solver.finish"):
+        return _result(x[0] if flat else x, st)
 
 
 # ------------------------------------------------ one-reduction recurrences
@@ -617,7 +654,8 @@ def explicit_kernel(A) -> Callable:
     """The SpMV kernel of an explicit matrix, its layout built once here:
     ``fn(x, *, out=None) -> A x`` on K9/K10 for a DiaMatrix and K11/K12 for
     an EllMatrix (the plain versions on the CPU)."""
-    return (prepare_dia(A) if isinstance(A, DiaMatrix) else prepare_ell(A)).matvec
+    with trace.span("solver.prepare"):
+        return (prepare_dia(A) if isinstance(A, DiaMatrix) else prepare_ell(A)).matvec
 
 
 def _make_cg_explicit(A, backend: str, method: str, replace_every: int,
@@ -681,7 +719,7 @@ def make_cg(
     check_method(method)
     kw = dict(max_iter=max_iter, tolerance=tolerance, check_every=check_every)
     if isinstance(A, (EllMatrix, DiaMatrix)):
-        return _make_cg_explicit(A, backend, method, replace_every, **kw)
+        return _spanned(_make_cg_explicit(A, backend, method, replace_every, **kw))
     if not isinstance(A, StencilOperator):
         raise TypeError(f"make_cg takes a StencilOperator, EllMatrix or DiaMatrix, got {type(A).__name__}")
     resolve_backend(backend, "cpu")  # reject unknown names now
@@ -715,7 +753,17 @@ def make_cg(
                             matvec_pap=matvec_pap, scalars=sdt, **kw)
         return cg_solve(A.matvec, b, x0, finalize=cg_finalize_plain, **kw)
 
-    return solve
+    return _spanned(solve)
+
+
+def _spanned(solve: Callable) -> Callable[[torch.Tensor, torch.Tensor], CGResult]:
+    """``solve(b, x0)`` inside a ``solver.solve`` span."""
+
+    def spanned(b: torch.Tensor, x0: torch.Tensor) -> CGResult:
+        with trace.span("solver.solve"):
+            return solve(b, x0)
+
+    return spanned
 
 
 def cg_solve_refined(
