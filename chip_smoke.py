@@ -56,11 +56,17 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    the z chunk) and on views at odd element offsets (p', x', r' bit for bit,
    repeats bit-identical), and K3/K4 float32 at 256^3 (phase_tile_edges);
    then K5 and K6 at 256^3 float32 and bfloat16 against theirs, 50
-   iterations (phase_whole_solve_256);
+   iterations (phase_whole_solve_256); then K3 without its Ap' store and
+   K4s (the stencil update that recomputes Ap') against K3 with Ap' and K4
+   (p', x', r' and K3's partials bit for bit) and against their plain
+   versions, at the shapes above in float32, float64 and bfloat16, 27- and
+   7-point, and on views at odd element offsets, and both timed at 300^3
+   float64 beside K3 and K4 (phase_stencil_update);
 4. main paths, each with every count set to 0 just before it and
    read just after: (a) slice 1, make_cg on the generated 27-point float32
-   problem at 100^3 (max_iter 150) on auto (= pallas_fused), pallas and
-   stencil, then at 256^3 (max_iter 50); (b) slice 2, megakernel and
+   problem at 100^3 (max_iter 150) on auto (= pallas_fused: K3 without its
+   Ap' store and K4s, no K4), pallas and stencil, then at 256^3 (max_iter
+   50); (b) slice 2, megakernel and
    streamkernel at 100^3 and 256^3 float32 against stencil, at 256^3
    float32 and bfloat16 against their plain versions (trace and x), at 256^3
    bfloat16 against the float32 stencil trace, megakernel bfloat16 at 100^3
@@ -81,7 +87,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    per rank on 1, 2, 4 and 8 ranks (weak scaling) and 64x64x1024 on 8
    ranks (strong scaling), each on collective (cg, cg1, pipecg: one launch
    of K15/K16 per solve), pallas_fused and stencil, against the
-   single-device stencil solve of the same global grid; (f) slice 5,
+   single-device stencil solve of the same global grid (K3's and K4's
+   launches are counted here: the distributed pallas_fused keeps K3 with
+   Ap' and K4);
+   (f) slice 5,
    distributed file mode: generate_ell(128^3) as DIA and as ELL, padded
    and sharded over 4 ranks of the card, float32 and float64, 50
    iterations, on dia-collective (K17 cg and cg1, one launch per solve,
@@ -89,18 +98,26 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ell-allgather (K11/K12), against the single-device DIA solve; and the
    permuted 64^3 f64 file after RCM on ell-halo; (g) slice 6, bf16 on
    K1-K4 and the benchmark: make_cg at 256^3 bf16 (max_iter 50) on pallas
-   and pallas_fused (one K3 and one K4 launch per iteration) against the
+   and pallas_fused (one K3 and one K4s launch per iteration) against the
    bf16 streamkernel trace, make_distributed_cg in bf16 on auto (= pallas,
    K2 with bf16 halo planes) on 4 ranks of 64^3 against the single-device
-   pallas solve, and ``hpccg_tpu_torch.bench --preset strong256 --dtype
-   bfloat16 --backend pallas_fused`` in process (K1/K3/K4 bf16 and both
-   probes); (h) slice 8, make_cg at 256^3 float32 on auto (= pallas_fused,
-   49 launches each of K3 and K4) against the stencil trace, twice,
-   bit-identical; (i) slice 9, make_cg at 256^3 on megakernel and
+   pallas solve, and on pallas_fused (K3/K4 bf16 with the Ap' store: their
+   rows' main path, driven alone) against the single-device pallas_fused
+   solve, and ``hpccg_tpu_torch.bench --preset strong256
+   --dtype bfloat16 --backend pallas_fused`` in process (K1/K3/K4s bf16 and
+   both probes); (h) slice 8, make_cg at 256^3 float32 on auto (=
+   pallas_fused, 49 launches each of K3 and K4s) against the stencil
+   trace, twice, bit-identical, and make_distributed_cg on pallas_fused
+   over 2 ranks of 256x256x128 (K3 with Ap' and K4, the 256^3 K3 and K4
+   rows' main path, driven alone); (i) slice 9, make_cg at 256^3 on megakernel and
    streamkernel (one launch per solve), float32 against the stencil
    trace and both dtypes against their plain versions; (j) slice 10,
    make_distributed_cg on collective (cg, cg1, pipecg) at 4 x 100^3
-   float32, past the L2, held as (e) holds its cells;
+   float32, past the L2, held as (e) holds its cells; (k) slice 16,
+   make_cg at 300^3 float64 on auto (= pallas_fused: 49 launches each of
+   K3 without its Ap' store and K4s, none of K4) against the K3 + K4 route
+   of the same solve (solved outside the path's drive) and the stencil
+   trace;
 5. golden: the reference's 10^3 float64 run on pallas_fused, megakernel,
    streamkernel and pallas_dd, from an HPC-row file through the CLI (DIA)
    and through make_cg on the EllMatrix (ELL), as two 10x10x5 ranks on
@@ -148,7 +165,8 @@ and K4 float32 have a second row at 256^3, past the L2, K5 and K6 a
 second and a third, at 256^3 in float32 and bfloat16, and K15 and K16 a
 second, at 4 x 100^3 in float32; K17 has a second, its float64 instance
 (launches counted on slice 5's main path); K13 and K14 each a float64
-row (slice 12). K14's rows are K11/K12's kernel on K14's class: they read
+row (slice 12); K3 without its Ap' store and K4s have rows at 300^3
+float64, the benchmark's ref300 grid (slice 16). K14's rows are K11/K12's kernel on K14's class: they read
 K11/K12's counters, on the ell-allgather solves of the permuted twin.
 
 Each phase prints its seconds. The line before the last is the kernels' JSON; the last line is
@@ -231,6 +249,10 @@ KERNELS = {
                                                                    "hpccg_tpu/ops/pallas/gell_stack.py:482"),
     "K14 f64 wide scatter, dynamic window (K12's ELL gather, in place)": ("hpccg_tpu_torch/csrc/ell.cu",
                                                                            "hpccg_tpu/ops/pallas/gell_dynwin.py:393"),
+    "K3 p-update + spmv + p.Ap without the Ap' store, 300^3 f64": ("hpccg_tpu_torch/csrc/stencil.cu",
+                                                                    "hpccg_tpu/ops/pallas/fused_cg.py:68"),
+    "K4s x/r update + r.r, Ap' recomputed, 300^3 f64": ("hpccg_tpu_torch/csrc/stencil.cu",
+                                                         "hpccg_tpu/ops/pallas/fused_cg.py:114"),
 }
 SLICE1 = list(KERNELS)[:5]  # the kernels of slice 1's main path
 SLICE2 = list(KERNELS)[5:8]
@@ -243,7 +265,9 @@ SLICE8 = list(KERNELS)[28:30]
 SLICE9 = list(KERNELS)[30:34]
 SLICE10 = list(KERNELS)[34:36]
 SLICE11 = list(KERNELS)[36:37]
-SLICE12 = list(KERNELS)[37:]
+SLICE12 = list(KERNELS)[37:39]
+SLICE16 = list(KERNELS)[39:]
+K4 = SLICE1[3]
 K5, K6, K7 = SLICE2
 K9, K10, K11, K12, K13, K14 = SLICE3
 K15, K16 = SLICE4
@@ -255,10 +279,12 @@ BIG5, BIG6, BIG5B, BIG6B = SLICE9
 BIG15, BIG16 = SLICE10
 (K17D,) = SLICE11
 K13D, K14D = SLICE12
+K3N, K4S = SLICE16
 WIDE = [K13, K14, K13D, K14D]
 WIDE13, WIDE14 = [K13, K13D], [K14, K14D]  # counted on the wide-scatter solves as loaded, on one device and in place
-# rows that read another row's counter (K14's rows K11's and K12's)
-SHARED = [K14, K14D]
+# rows that read another row's counter (K14's rows K11's and K12's) or a
+# part of it (K3 without the Ap' store: K3's launches of that form)
+SHARED = [K14, K14D, K3N]
 # tolerances, kernel vs plain on the same inputs: the sums run in another
 # order (the xy-sums associate like the plain version, but the compiler may
 # contract into FMAs, and the dots are per-block trees)
@@ -872,6 +898,8 @@ def _counters():
     counters += [(col.cg_collective_dia, "launches_f64")]
     # slice 12's rows are K13's float64 instance and K14's (K12's)
     counters += [(cell.spmv_ell, "launches_scatter_f64"), (cell.spmv_ell, "launches_f64")]
+    # K3 without the Ap' store (counted apart too) and K4s, at 300^3 float64
+    counters += [(st.update_p_apply, "launches_noap"), (st.update_x_r_stencil, "launches")]
     return dict(zip(KERNELS, counters))
 
 
@@ -957,9 +985,11 @@ def _main_path_slice1() -> None:
     names = list(KERNELS)
     runs = _solve_all(MAIN_SHAPE, 150, ["auto", "pallas", "stencil"])
     fused = runs["auto"][1]
-    for n in (names[0], names[2], names[3], names[4]):
+    for n in (names[0], names[2], K4S, names[4]):
         if fused[n] <= 0:
             raise AssertionError(f"auto (pallas_fused) did not launch {n}")
+    if fused[names[3]] or fused[K3N] != fused[names[2]]:
+        raise AssertionError(f"auto (pallas_fused) on one device launched K4 or K3 with its Ap' store: {fused}")
     if runs["pallas"][1][names[1]] <= 0 or runs["pallas"][1][names[4]] <= 0:
         raise AssertionError("pallas did not launch K2 and finalize")
     if any(runs["stencil"][1].values()):
@@ -1457,22 +1487,34 @@ def phase_main_path() -> dict:
     10's 4 x 100^3 collective solves, each with its own counts; the launches
     reported for each kernel are those of its own run. Slice 9's kernels
     (K5/K6 at 256^3, float32 and bfloat16) run on slice 2's path and are
-    read from its counts, slice 11's (K17 in float64) on slice 5's."""
-    first = _drive(_main_path_slice1, SLICE1)
+    read from its counts, slice 11's (K17 in float64) on slice 5's. K3 with
+    its Ap' store and K4 run only on the distributed pallas_fused path:
+    their rows are read from slice 4's distributed solves (K3, K4),
+    a distributed bf16 solve of slice 6 (K3/K4 bf16) and one of slice 8
+    (K3/K4 256^3), each driven alone; K3 without its Ap' store and K4s from
+    slice 16's 300^3 float64 solve, whose K3 + K4 comparison is solved
+    outside its drive."""
+    one = [n for n in SLICE1 if n not in (SLICE1[2], K4)]  # K3 and K4 are counted on slice 4's path
+    first = _drive(_main_path_slice1, one + [SLICE1[2], K3N, K4S])
     second = _drive(_main_path_slice2, SLICE2 + SLICE9)
     third = _drive(_main_path_slice3, [K9, K10, K11, K12])
     wide = _drive(_main_path_wide_scatter, WIDE13)
     inplace = _drive(_main_path_wide_inplace, WIDE14)
-    fourth = _drive(_main_path_slice4, SLICE4)
+    fourth = _drive(_main_path_slice4, SLICE4 + [SLICE1[2], K4])
     fifth = _drive(_main_path_slice5, SLICE5 + SLICE11)
-    sixth = _drive(_main_path_slice6, SLICE6)
+    sixth = _drive(_main_path_slice6, [n for n in SLICE6 if n != B4])
+    ref6 = _bf16_fused_reference()
+    sixth_fused = _drive(lambda: _main_path_slice6_fused(ref6), [B3, B4])
     seventh = _drive(_main_path_slice7, SLICE7)
-    eighth = _drive(_main_path_slice8, SLICE8)
+    eighth = _drive(_main_path_slice8, [BIG3, K3N, K4S])
+    eighth_fused = _drive(_main_path_slice8_fused, SLICE8)
     tenth = _drive(_main_path_slice10, SLICE10)
-    runs = [(SLICE1, first), (SLICE2, second), ([K9, K10, K11, K12], third), (WIDE13, wide), (WIDE14, inplace),
-            (SLICE4, fourth),
-            (SLICE5, fifth), (SLICE6, sixth), (SLICE7, seventh), (SLICE8, eighth), (SLICE9, second),
-            (SLICE10, tenth), (SLICE11, fifth)]
+    route = _k3_k4_route()
+    sixteenth = _drive(lambda: _main_path_slice16(route), SLICE16)
+    runs = [(one, first), (SLICE2, second), ([K9, K10, K11, K12], third), (WIDE13, wide), (WIDE14, inplace),
+            (SLICE4 + [SLICE1[2], K4], fourth), (SLICE5, fifth), ([n for n in SLICE6 if n not in (B3, B4)], sixth),
+            ([B3, B4], sixth_fused), (SLICE7, seventh), (SLICE8, eighth_fused), (SLICE9, second),
+            (SLICE10, tenth), (SLICE11, fifth), (SLICE16, sixteenth)]
     return {n: counts[n] for names, counts in runs for n in names}
 
 
@@ -2045,8 +2087,8 @@ def _main_path_slice4(cells=None, runs=None, f64=True) -> None:
             if backend == "collective":
                 one_launch(delta, method, what)
             elif backend == "pallas_fused":
-                if min(delta[n] for n in SLICE1[2:]) <= 0:
-                    raise AssertionError(f"{what}: K3/K4/finalize not all launched: {delta}")
+                if min(delta[n] for n in SLICE1[2:]) <= 0 or delta[K3N] or delta[K4S]:
+                    raise AssertionError(f"{what}: K3/K4/finalize not all launched, or K4s's route: {delta}")
             elif any(delta.values()):
                 raise AssertionError(f"{what}: the stencil backend launched a kernel")
             say(f"[main] {what}: niters {niters} normr {float(res.normr):.6e}; {note}; launches {_launch_note(delta)}")
@@ -2781,23 +2823,28 @@ def _plain_kernels():
         y, part = st.spmv_stencil_pap_plain(op, u, halo, out=out, active=active)
         return y, into(partials, part)
 
-    def k3(op, r, p, beta, halo=None, *, out_p=None, out_ap=None, partials=None, active=None):
-        pp, ap, part = st.update_p_apply_plain(op, r, p, beta, halo, out_p=out_p, out_ap=out_ap, active=active)
+    def k3(op, r, p, beta, halo=None, *, out_p=None, out_ap=None, partials=None, active=None, store_ap=True):
+        pp, ap, part = st.update_p_apply_plain(op, r, p, beta, halo, out_p=out_p, out_ap=out_ap, active=active,
+                                               store_ap=store_ap)
         return pp, ap, into(partials, part)
 
     def k4(x, r, p, ap, alpha, *, partials=None, active=None):
         x, r, part = fc.update_x_r_plain(x, r, p, ap, alpha, active=active)
         return x, r, into(partials, part)
 
+    def k4s(op, x, r, p, alpha, *, partials=None, active=None):
+        x, r, part = st.update_x_r_stencil_plain(op, x, r, p, alpha, active=active)
+        return x, r, into(partials, part)
+
     with mock.patch.multiple("hpccg_tpu_torch.solver", spmv_stencil=st.spmv_stencil_plain, spmv_stencil_pap=k2,
-                             update_p_apply=k3, update_x_r=k4):
+                             update_p_apply=k3, update_x_r=k4, update_x_r_stencil=k4s):
         yield
 
 
 def _main_path_slice6() -> None:
     """The bf16 main path at BF16_SHAPE (max_iter 50): make_cg on pallas (K1,
-    K2 bf16) and pallas_fused (K1, K3, K4 bf16: one K3 and one K4 launch per
-    iteration), each held against the same recurrence with the plain versions
+    K2 bf16) and pallas_fused (K1, K3 without its Ap' store and K4s bf16:
+    one launch each per iteration), each held against the same recurrence with the plain versions
     in place of the kernels (WS_TRACE bf16, as K5/K6 against theirs), and,
     as the bf16 whole solves are, against the float32 stencil trace and the
     bf16 streamkernel trace (BF16_RTOL above BF16_FLOOR: two bf16
@@ -2806,7 +2853,8 @@ def _main_path_slice6() -> None:
     halo planes) on 4 ranks of the card at 64x64x64 per rank, against the
     single-device pallas solve of the same grid; then the benchmark entry
     point in process, ``--preset strong256 --dtype bfloat16 --backend
-    pallas_fused``, which runs K1/K3/K4 bf16 and both probe kernels."""
+    pallas_fused``, which runs K1/K3/K4s bf16 and both probe kernels.
+    K3/K4 bf16 with the Ap' store are counted on _main_path_slice6_fused."""
     from hpccg_tpu_torch import ProblemConfig, generate_problem, make_cg
     from hpccg_tpu_torch import bench
     from hpccg_tpu_torch.parallel import generate_problem_sharded, make_distributed_cg
@@ -2830,8 +2878,8 @@ def _main_path_slice6() -> None:
             f"{cross[0]:.2e} of the float32 stencil trace and {cross[1]:.2e} of the bf16 streamkernel trace "
             f"above {BF16_FLOOR}; max|x - 1| {float((res.x.float() - 1).abs().max()):.3e}")
     fused = runs["pallas_fused"][1]
-    if not (fused[B3] == fused[B4] == 49 and fused[B1] >= 1):
-        raise AssertionError(f"256^3 bf16 pallas_fused: expected K3/K4 bf16 once per iteration: {fused}")
+    if not (fused[B3] == fused[K4S] == 49 and fused[B4] == 0 and fused[B1] >= 1):
+        raise AssertionError(f"256^3 bf16 pallas_fused: expected K3/K4s bf16 once per iteration: {fused}")
     if runs["pallas"][1][B2] < 49:
         raise AssertionError(f"256^3 bf16 pallas: K2 bf16 launched {runs['pallas'][1][B2]} times")
     cfg = ProblemConfig(64, 64, 64, dtype=torch.bfloat16)
@@ -2857,6 +2905,42 @@ def _main_path_slice6() -> None:
     if rc != 0:
         raise AssertionError(f"bench strong256 bf16 pallas_fused returned {rc}")
     _bench_line(buf.getvalue(), "--preset strong256 --dtype bfloat16 --backend pallas_fused (in process)", 150)
+
+
+def _bf16_fused_reference():
+    """The single-device bf16 pallas_fused trace of the 64x64x256 grid
+    (K3 without its Ap' store and K4s), that _main_path_slice6_fused is
+    held against; solved outside its drive, so that its launches are not
+    counted as that path's."""
+    from hpccg_tpu_torch import ProblemConfig, generate_problem, make_cg
+
+    gprob = generate_problem(ProblemConfig(64, 64, 256, dtype=torch.bfloat16), "cuda")
+    return make_cg(gprob.A, max_iter=50, tolerance=0.0, backend="pallas_fused")(gprob.b, gprob.x0).trace
+
+
+def _main_path_slice6_fused(single) -> None:
+    """K3/bf16 with its Ap' store and K4/bf16 on their main path:
+    make_distributed_cg in bf16 on pallas_fused (K3 with bf16 halo planes,
+    then K4, on every rank) on 4 ranks of the card at 64x64x64 per rank,
+    max_iter 50, against the single-device pallas_fused trace ``single``
+    of the same grid (_bf16_fused_reference) within BF16_RTOL above
+    BF16_FLOOR; no K3 without the Ap' store and no K4s."""
+    from hpccg_tpu_torch import ProblemConfig
+    from hpccg_tpu_torch.parallel import generate_problem_sharded, make_distributed_cg
+
+    cfg = ProblemConfig(64, 64, 64, dtype=torch.bfloat16)
+    mesh = _one_card(4)
+    prob = generate_problem_sharded(cfg, mesh)
+    before = _counts()
+    res = make_distributed_cg(cfg, mesh, max_iter=50, tolerance=0.0, backend="pallas_fused")(prob.b, prob.x0)
+    torch.cuda.synchronize()
+    delta = {n: c - before[n] for n, c in _counts().items()}
+    if int(res.niters) != 49 or delta[B3] != 4 * 49 or delta[B4] != 4 * 49 or delta[K3N] or delta[K4S]:
+        raise AssertionError(f"4 x 64^3 bf16 pallas_fused: niters {int(res.niters)}, launches {delta}")
+    worst = _head_rel(res.trace.double().cpu(), single.double().cpu(), BF16_RTOL, BF16_FLOOR,
+                      "4 x 64^3 bf16 pallas_fused vs single-device pallas_fused")
+    say(f"[main] 4 x 64^3 bf16 distributed pallas_fused (K3/K4 bf16 with halo planes): niters 49, trace within "
+        f"{worst:.2e} of the single-device pallas_fused solve's above {BF16_FLOOR}; launches {_launch_note(delta)}")
 
 
 def phase_bench() -> None:
@@ -3492,19 +3576,190 @@ def phase_tile_edges(card: str) -> dict:
 
 
 def _main_path_slice8() -> None:
-    """make_cg at 256^3 float32 on auto (= pallas_fused: one K3 and one K4
-    launch an iteration), max_iter 50, against the stencil backend's trace;
-    two runs bit-identical."""
+    """make_cg at 256^3 float32 on auto (= pallas_fused: one K3, without
+    its Ap' store, and one K4s launch an iteration), max_iter 50, against
+    the stencil backend's trace; two runs bit-identical."""
     big = _solve_all(BIG_SHAPE, 50, ["auto", "stencil"])
     delta = big["auto"][1]
-    if delta[BIG3] != 49 or delta[BIG4] != 49:
-        raise AssertionError(f"256^3 pallas_fused: expected 49 K3 and 49 K4 launches, got {delta}")
+    if delta[BIG3] != 49 or delta[K3N] != 49 or delta[K4S] != 49 or delta[BIG4]:
+        raise AssertionError(f"256^3 pallas_fused: expected 49 K3 (without Ap') and 49 K4s launches and no K4, "
+                             f"got {delta}")
     worst, tail = _trace_check(big["auto"][0], big["stencil"][0], "slice 8: 256^3 auto")
     again = _solve_all(BIG_SHAPE, 50, ["pallas_fused"])["pallas_fused"][0]
     if not torch.equal(again, big["auto"][0]):
         raise AssertionError("two 256^3 pallas_fused solves gave different traces")
     say(f"[main] slice 8, 256^3 auto (pallas_fused): trace within {worst:.2e} of stencil's above 1e-7 of "
         f"trace[0], {tail:.2e} below; a second solve bit-identical")
+
+
+def _main_path_slice8_fused() -> None:
+    """K3 with its Ap' store and K4 at 256^3 float32 on their main path:
+    make_distributed_cg on pallas_fused over 2 ranks of 256x256x128 on the
+    card (K3 with Ap' and K4 on each rank, no K4s), max_iter 50, against
+    the single-device stencil trace of the 256^3 grid (which launches
+    nothing)."""
+    from hpccg_tpu_torch import ProblemConfig
+    from hpccg_tpu_torch.parallel import generate_problem_sharded, make_distributed_cg
+
+    ref = _solve_all(BIG_SHAPE, 50, ["stencil"])["stencil"][0]
+    cfg = ProblemConfig(256, 256, 128, dtype=torch.float32)
+    mesh = _one_card(2)
+    prob = generate_problem_sharded(cfg, mesh)
+    before = _counts()
+    res = make_distributed_cg(cfg, mesh, max_iter=50, tolerance=0.0, backend="pallas_fused")(prob.b, prob.x0)
+    torch.cuda.synchronize()
+    delta = {n: c - before[n] for n, c in _counts().items()}
+    if int(res.niters) != 49 or delta[BIG3] != 2 * 49 or delta[BIG4] != 2 * 49 or delta[K3N] or delta[K4S]:
+        raise AssertionError(f"2 x 256x256x128 pallas_fused: niters {int(res.niters)}, launches {delta}")
+    worst, tail = _trace_check(res.trace.double().cpu(), ref, "slice 8: 2 x 256x256x128 pallas_fused")
+    say(f"[main] slice 8, 2 x 256x256x128 distributed pallas_fused (K3 with Ap', K4): trace within {worst:.2e} "
+        f"of the single-device stencil trace above 1e-7 of trace[0], {tail:.2e} below")
+
+
+UPDATE_SHAPE = (300, 300, 300)  # the benchmark's stencil27_f64.ref300 grid: K3 without Ap' and K4s rows
+
+
+def _k3n_k4s_case(op, x, r, p, beta, alpha, tag) -> tuple:
+    """K3 without its Ap' store and K4s on (x, r, p) against K3 with Ap' and
+    K4 on the card (p', x', r' and K3's partials bit for bit: K4s forms A p'
+    as K3 forms Ap'; the new r.r's sums within the dot tolerance, the two
+    group their partials differently) and against their plain versions (p'
+    and x' bit for bit, r' and the partials' sums within the tolerances);
+    a repeat gives the same bits. Returns the largest |kernel - plain| of
+    K3's p' . Ap' sum and of K4s's r'."""
+    from hpccg_tpu_torch.ops.cuda import fused_cg as fc
+    from hpccg_tpu_torch.ops.cuda import stencil as st
+
+    dtype = x.dtype
+
+    def run():
+        pp, ap, part3 = st.update_p_apply(op, r, p, beta, store_ap=False)
+        xs, rs = x.clone(), r.clone()
+        _, _, part4 = st.update_x_r_stencil(op, xs, rs, pp, alpha)
+        return ap, (pp, xs, rs, part3, part4)
+
+    ap, got = run()
+    if ap is not None or not all(torch.equal(a, b) for a, b in zip(got, run()[1])):
+        raise AssertionError(f"K3 without Ap' / K4s {tag}: a repeat differs (or Ap' was returned)")
+    pp, xs, rs, part3, part4 = got
+    pk, apk, part3k = st.update_p_apply(op, r, p, beta)
+    xk, rk = x.clone(), r.clone()
+    _, _, part4k = fc.update_x_r(xk, rk, pk, apk, alpha)
+    if not all(torch.equal(a, b) for a, b in zip((pp, xs, rs, part3), (pk, xk, rk, part3k))):
+        raise AssertionError(f"K3 without Ap' / K4s {tag}: p', x', r' or K3's partials differ from K3 + K4's")
+    _edge_dot(part4.sum(), part4k.sum(), dtype, f"K4s r.r vs K4's {tag}")
+    xp, rp = x.clone(), r.clone()
+    _, _, part_p = st.update_x_r_stencil_plain(op, xp, rp, pp, alpha)
+    if not torch.equal(xs, xp):
+        raise AssertionError(f"K4s {tag}: x' differs from its plain version's")
+    err4 = _edge_vec(rs, rp, dtype, f"K4s r' {tag}")
+    _edge_dot(part4.sum(), part_p.sum(), dtype, f"K4s r.r {tag}")
+    part3p = st.update_p_apply_plain(op, r, p, beta, store_ap=False)[2]
+    _edge_dot(part3.sum(), part3p.sum(), dtype, f"K3 without Ap' p'.Ap' {tag}")
+    return float((part3.sum() - part3p.sum()).abs()), err4
+
+
+def phase_stencil_update(card) -> dict:
+    """K3 without its Ap' store and K4s (_k3n_k4s_case) at 33x17x9, 100^3
+    and 64x48x130, 27- and 7-point, in float32, float64 and bfloat16, and
+    on views at odd element offsets; then both timed against their plain
+    versions at UPDATE_SHAPE float64 (the kernels line's rows), with K3
+    (Ap' stored) and K4 on the same inputs beside them."""
+    from hpccg_tpu_torch.config import Stencil
+    from hpccg_tpu_torch.operators import StencilOperator
+    from hpccg_tpu_torch.ops.cuda import fused_cg as fc
+    from hpccg_tpu_torch.ops.cuda import stencil as st
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+
+    def rnd(shape, dtype, offset=0):
+        n = math.prod(shape)
+        v = torch.randn((n + offset,), generator=gen, device="cuda", dtype=torch.float64).to(dtype)
+        return v[offset:].view(shape)
+
+    def scalars(dtype):
+        sdt = torch.float64 if dtype == torch.float64 else torch.float32
+        return (torch.tensor([0.37], device="cuda", dtype=sdt), torch.tensor([0.29], device="cuda", dtype=sdt))
+
+    for dtype in (torch.float32, torch.float64, torch.bfloat16):
+        for dims in SHAPES:
+            for stencil in (Stencil.S27, Stencil.S7):
+                op = StencilOperator(*dims, stencil, dtype)
+                grid = dims[::-1]
+                tag = f"{dims[0]}x{dims[1]}x{dims[2]} {stencil.value}pt {str(dtype)[6:]}"
+                e3, e4 = _k3n_k4s_case(op, rnd(grid, dtype), rnd(grid, dtype), rnd(grid, dtype), *scalars(dtype),
+                                       tag)
+                say(f"[update] {tag}: ok, K3 without Ap' and K4s bit for bit against K3 + K4; against plain: "
+                    f"p'.Ap' {e3:.2e}, r' {e4:.2e}")
+        nx, ny, nz = 100, 9, 7
+        op = StencilOperator(nx, ny, nz, Stencil.S27, dtype)
+        tag = f"views at odd offsets {nx}x{ny}x{nz} {str(dtype)[6:]}"
+        _k3n_k4s_case(op, *(rnd((nz, ny, nx), dtype, off) for off in (1, 3, 5)), *scalars(dtype), tag)
+        say(f"[update] {tag}: ok")
+    op = StencilOperator(*UPDATE_SHAPE, Stencil.S27, torch.float64)
+    grid = UPDATE_SHAPE[::-1]
+    r, p, x = (rnd(grid, torch.float64) for _ in range(3))
+    beta = torch.tensor([0.37], device="cuda", dtype=torch.float64)
+    zero = torch.zeros((1,), device="cuda", dtype=torch.float64)  # the timed K4s keeps x and r as they are
+    stats = {K3N: {}, K4S: {}}
+    stats[K3N]["max_abs_err"], stats[K4S]["max_abs_err"] = _k3n_k4s_case(op, x, r, p, *scalars(torch.float64),
+                                                                         "300^3 27pt float64")
+    out, out2, rr = torch.empty_like(r), torch.empty_like(r), r.clone()
+    parts3 = torch.empty((st.num_partials(op, "cuda"),), device="cuda", dtype=torch.float64)
+    parts4 = torch.empty((fc.num_update_partials(r.numel(), "cuda"),), device="cuda", dtype=torch.float64)
+    _time_pair(stats[K3N], lambda: st.update_p_apply(op, r, p, beta, out_p=out, partials=parts3, store_ap=False),
+               lambda: st.update_p_apply_plain(op, r, p, beta, out_p=out, store_ap=False))
+    _time_pair(stats[K4S], lambda: st.update_x_r_stencil(op, x, rr, p, zero, partials=parts3),
+               lambda: st.update_x_r_stencil_plain(op, x, rr, p, zero))
+    n, nnz = op.local_nrow, op.nnz
+    _model(stats[K3N], 3 * n * 8, 2 * nnz + 4 * n, 8)
+    _model(stats[K4S], 5 * n * 8, 2 * nnz + 6 * n, 8)
+    k3 = _graph_ms(lambda: st.update_p_apply(op, r, p, beta, out_p=out, out_ap=out2, partials=parts3))
+    k4 = _graph_ms(lambda: fc.update_x_r(x, rr, p, out2, zero, partials=parts4))
+    for name in SLICE16:
+        stat = stats[name]
+        say(f"[update] {name}: {stat['ms'] * 1e3:.2f} us vs plain {stat['plain_ms'] * 1e3:.2f}, bound "
+            f"{_bound(stat)[0] * 1e3:.2f} ({_gbs(stat['bytes'], stat['ms']):.0f} GB/s) [{card}]")
+    say(f"[update] beside them on the same inputs: K3 with Ap' {k3 * 1e3:.2f} us ({_gbs(4 * n * 8, k3):.0f} GB/s), "
+        f"K4 {k4 * 1e3:.2f} us ({_gbs(6 * n * 8, k4):.0f} GB/s) [{card}]")
+    return stats
+
+
+def _k3_k4_route():
+    """The K3 + K4 route (K3 with its Ap' store, K4: the sequence of the
+    parent's pallas_fused) of _main_path_slice16's solve: ``cg_solve_fused``
+    given ``halo4``, at UPDATE_SHAPE float64, max_iter 50; solved outside
+    that path's drive, so that its launches are not counted as the path's."""
+    from hpccg_tpu_torch import ProblemConfig, generate_problem
+    from hpccg_tpu_torch.solver import cg_solve_fused
+
+    prob = generate_problem(ProblemConfig(*UPDATE_SHAPE, dtype=torch.float64), "cuda")
+    return cg_solve_fused(prob.A, prob.b, prob.x0, max_iter=50, halo4=lambda rs, ps: [None])
+
+
+def _main_path_slice16(want) -> None:
+    """make_cg at UPDATE_SHAPE float64 on auto (= pallas_fused: one K3
+    without its Ap' store and one K4s launch an iteration, no K4), max_iter
+    50, against ``want``, the K3 + K4 route of the same solve
+    (_k3_k4_route; niters equal, trace within WS_TRACE float64, x within
+    WS_X_RTOL: the two add r.r's partials in other orders) and against the
+    stencil backend's trace."""
+    runs = _solve_all(UPDATE_SHAPE, 50, ["auto", "stencil"], torch.float64)
+    tr, delta, res = runs["auto"]
+    if delta[K3N] != 49 or delta[SLICE1[2]] != 49 or delta[K4S] != 49 or delta[K4]:
+        raise AssertionError(f"300^3 f64 pallas_fused: expected 49 K3 (without Ap') and 49 K4s launches and no K4, "
+                             f"got {delta}")
+    rtol, floor = WS_TRACE[torch.float64]
+    worst, tail = _trace_check(tr, want.trace.double().cpu(), "300^3 f64 pallas_fused vs the K3 + K4 route",
+                               rtol, floor)
+    xerr = float((res.x - want.x).abs().max())
+    if int(want.niters) != int(res.niters) or not xerr <= WS_X_RTOL[torch.float64] * float(want.x.abs().max()):
+        raise AssertionError(f"300^3 f64 pallas_fused vs the K3 + K4 route: niters {int(res.niters)} vs "
+                             f"{int(want.niters)}, max|x - x'| {xerr:.3e}")
+    worst_s, _ = _trace_check(tr, runs["stencil"][0], "300^3 f64 pallas_fused vs stencil", rtol, floor)
+    say(f"[main] slice 16, 300^3 f64 auto (pallas_fused: K3 without Ap', K4s): trace within {worst:.2e} of the "
+        f"K3 + K4 route's above {floor} of trace[0] ({tail:.2e} below), x within {xerr:.2e}; within "
+        f"{worst_s:.2e} of stencil's")
 
 
 def _phase(name, fn, *args):
@@ -3530,6 +3785,7 @@ def main() -> int:
     stats.update(_phase("bf16 K15/K16 vs plain", phase_collective_bf16_kernels))
     stats.update(_phase("K1-K4 at the tile edges, K3/K4 at 256^3", phase_tile_edges, card))
     stats.update(_phase("K5/K6 at 256^3", phase_whole_solve_256, card))
+    stats.update(_phase("K3 without Ap', K4s", phase_stencil_update, card))
     launches = _phase("main paths", phase_main_path)
     for name, key in ((BIG5, (torch.float32, "megakernel")), (BIG6, (torch.float32, "streamkernel")),
                       (BIG5B, (torch.bfloat16, "megakernel")), (BIG6B, (torch.bfloat16, "streamkernel"))):

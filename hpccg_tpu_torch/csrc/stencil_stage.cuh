@@ -1,5 +1,5 @@
 // The staged-plane stencil tile of the Hopper kernels: the per-iteration
-// stencil kernels K1-K3 and K7 (stencil.cu), the whole-solve kernels K5
+// stencil kernels K1-K3, K7 and K4s (stencil.cu), the whole-solve kernels K5
 // and K6 (wholesolve.cu) and the collective whole solves K15 and K16
 // (collective.cu) march it.
 //
@@ -304,10 +304,16 @@ __device__ __forceinline__ void plane_sums(const T* plane, int w, int lane, S (&
 // and rows outside the grid are called too, and the caller drops them.
 // Every thread of the block must call this (it synchronises the block);
 // a caller that marches again must synchronise the block first (the ring
-// is reused).
-template <typename T, typename S, int STENCIL, int NA, bool FUSE_P, bool L2, typename Emit>
-__device__ __forceinline__ void march(T* ring, const Planes<T>& u, const Planes<T>& v, const Extent& e, S beta,
-                                      int bx0, int by0, int z0, int z1, Emit&& emit) {
+// is reused). march_pre also calls pre(zs) just before it commits the
+// cp.async group that stages plane zs (zs = z0-1 .. z1+RING-1; the last
+// RING-1 groups stage nothing), in the prologue and at the top of each
+// step, before the step's wait: copies that pre starts join that group,
+// which has landed by the step that emits plane zs-1, at any ring depth
+// (stencil.cu's update kernel K4s puts x and r of plane zs-1 in flight
+// there).
+template <typename T, typename S, int STENCIL, int NA, bool FUSE_P, bool L2, typename Pre, typename Emit>
+__device__ __forceinline__ void march_pre(T* ring, const Planes<T>& u, const Planes<T>& v, const Extent& e,
+                                          S beta, int bx0, int by0, int z0, int z1, Pre&& pre, Emit&& emit) {
   constexpr int V = Geo<T>::V, RING = ring_slots(NA);
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   auto slot = [&](int i) { return ring + (i % RING) * (NA * Geo<T>::PLANE); };
@@ -315,6 +321,7 @@ __device__ __forceinline__ void march(T* ring, const Planes<T>& u, const Planes<
   // planes z0-1 .. z1: the first RING-1 in flight before the march
 #pragma unroll
   for (int i = 0; i < RING - 1; ++i) {
+    pre(z0 - 1 + i);
     if (z0 - 1 + i <= z1) stage_plane<T, NA, L2>(slot(i), u, v, e, z0 - 1 + i, bx0, by0);
     commit_group();
   }
@@ -323,6 +330,7 @@ __device__ __forceinline__ void march(T* ring, const Planes<T>& u, const Planes<
 #pragma unroll
   for (int j = 0; j < V; ++j) c_prev[j] = c_cur[j] = s_prev[j] = s_cur[j] = S(0);
   for (int zz = z0 - 1, it = 0; zz <= z1; ++zz, ++it) {
+    pre(zz + RING - 1);
     wait_group<RING - 2>();  // this thread's copies of plane zz have landed
     if (FUSE_P) form_p<T, S>(slot(it), u, e, beta, zz, bx0, by0);
     __syncthreads();  // plane zz is staged for all; plane zz-1's reads are done
@@ -347,6 +355,12 @@ __device__ __forceinline__ void march(T* ring, const Planes<T>& u, const Planes<
       s_cur[j] = s[j];
     }
   }
+}
+
+template <typename T, typename S, int STENCIL, int NA, bool FUSE_P, bool L2, typename Emit>
+__device__ __forceinline__ void march(T* ring, const Planes<T>& u, const Planes<T>& v, const Extent& e, S beta,
+                                      int bx0, int by0, int z0, int z1, Emit&& emit) {
+  march_pre<T, S, STENCIL, NA, FUSE_P, L2>(ring, u, v, e, beta, bx0, by0, z0, z1, [](int) {}, emit);
 }
 
 }  // namespace stage

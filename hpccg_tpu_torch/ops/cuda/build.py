@@ -45,6 +45,9 @@ _SIGNATURES = {
     "hpccg_stencil_f32": [_P] * 11 + [_I] * 6 + [_P],
     "hpccg_stencil_f64": [_P] * 11 + [_I] * 6 + [_P],
     "hpccg_stencil_bf16": [_P] * 11 + [_I] * 6 + [_P],
+    "hpccg_stencil_update_f32": [_P] * 6 + [_I] * 4 + [_P],
+    "hpccg_stencil_update_f64": [_P] * 6 + [_I] * 4 + [_P],
+    "hpccg_stencil_update_bf16": [_P] * 6 + [_I] * 4 + [_P],
     "hpccg_update_num_blocks": [_LL],
     "hpccg_update_x_r_f32": [_P] * 7 + [_LL, _P],
     "hpccg_update_x_r_f64": [_P] * 7 + [_LL, _P],

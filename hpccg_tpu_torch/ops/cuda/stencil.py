@@ -1,11 +1,16 @@
-"""Stencil SpMV kernels K1, K2, K3 and K7 (``csrc/stencil.cu``): wrappers,
-plain versions and launch counters.
+"""Stencil SpMV kernels K1, K2, K3, K7 and the stencil CG update K4s
+(``csrc/stencil.cu``): wrappers, plain versions and launch counters.
 
 - K1 ``spmv_stencil``: y = A u (``stencil_v2.py:_kernel``; also the product
   of ``stencil_kernel.py:_kernel``, K8);
 - K2 ``spmv_stencil_pap``: (y, partials of u . y) (``stencil_v2.py:_kernel_pap``);
 - K3 ``update_p_apply``: (p' = r + beta p, Ap' = A p', partials of p'. Ap')
-  (``fused_cg.py:_k1``);
+  (``fused_cg.py:_k1``); with ``store_ap=False`` it stores p' and the
+  partials only, and K4s recomputes Ap';
+- K4s ``update_x_r_stencil``: x += alpha p, r -= alpha A p in place, with
+  partials of the new r . r: K4 (``fused_cg.py:_k2``) with A p recomputed
+  from p, as ``streamkernel.py:_kernel`` recomputes it, in place of an Ap
+  read back from device memory;
 - K7 ``spmv_stencil_pap_dd``: K2's float64 instance, backend ``pallas_dd``
   (``stencil_v2.py:_kernel_dd`` / ``_kernel_dd_pap``, which carry f64 as
   (hi, lo) float32 pairs because the TPU has no f64; Hopper has native f64).
@@ -25,7 +30,9 @@ nothing is written. ``partials`` are per-block sums that
 
 Each wrapper runs its plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel (on the current stream, without
-synchronising) or raises; it counts its launches in ``<wrapper>.launches``.
+synchronising) or raises; it counts its launches in ``<wrapper>.launches``
+(bf16 ones in ``launches_bf16`` as well, and K3's launches without the Ap'
+store in ``update_p_apply.launches_noap`` / ``launches_noap_bf16`` as well).
 """
 
 from __future__ import annotations
@@ -39,10 +46,11 @@ from hpccg_tpu_torch.config import scalar_dtype
 from hpccg_tpu_torch.operators import StencilOperator, apply_grid
 from hpccg_tpu_torch.ops.cuda import STENCIL_DTYPES, check_tensors
 from hpccg_tpu_torch.ops.cuda.build import check_launch, load_library
+from hpccg_tpu_torch.ops.cuda.fused_cg import update_x_r_plain
 
 
 def num_partials(op: StencilOperator, device, dtype=None) -> int:
-    """How many partials K2/K3 write on ``device`` for vectors of ``dtype``
+    """How many partials K2/K3/K4s write on ``device`` for vectors of ``dtype``
     (default ``op.dtype``; 1 for the plain version): the kernel's tile is
     16 bytes a thread wide, so its grid depends on the element size."""
     if torch.device(device).type != "cuda":
@@ -232,10 +240,12 @@ spmv_stencil_pap_dd.launches = spmv_stencil_pap_dd.launches_bf16 = 0
 
 
 def update_p_apply_plain(op, r, p, beta, halo=None, *, out_p=None, out_ap=None,
-                         partials=None, active=None):
-    """Plain torch K3: (p' = r + beta p, Ap' = A p', [p' . Ap'])."""
+                         partials=None, active=None, store_ap=True):
+    """Plain torch K3: (p' = r + beta p, Ap' = A p', [p' . Ap']); Ap' is
+    None when not ``store_ap``."""
     out_p = torch.empty_like(r) if out_p is None else out_p
-    out_ap = torch.empty_like(r) if out_ap is None else out_ap
+    if out_ap is None and store_ap:
+        out_ap = torch.empty_like(r)
     sdt = scalar_dtype(r.dtype)
     if partials is None:
         partials = torch.empty((1,), dtype=sdt, device=r.device)
@@ -249,17 +259,24 @@ def update_p_apply_plain(op, r, p, beta, halo=None, *, out_p=None, out_ap=None,
     below = above = None
     if halo is not None:
         below, above = xpby(halo[0], halo[2]), xpby(halo[1], halo[3])
-    out_ap.copy_(_apply_halo(op, out_p, below, above))
-    partials.copy_(_dot(out_p, out_ap))
+    ap = _apply_halo(op, out_p, below, above).to(r.dtype)  # rounded as stored
+    partials.copy_(_dot(out_p, ap))
+    if out_ap is not None:
+        out_ap.copy_(ap)
     return out_p, out_ap, partials
 
 
 def update_p_apply(op: StencilOperator, r, p, beta, halo=None, *, out_p=None, out_ap=None,
-                   partials=None, active=None):
+                   partials=None, active=None, store_ap=True):
     """K3: (p' = r + beta p, Ap' = A p', per-block partials of p' . Ap').
+    With ``store_ap=False`` Ap' is not stored (``out_ap`` must be None and
+    None is returned in its place); the partials still sum p' . Ap' over
+    Ap' rounded as it would be stored.
 
     ``out_p`` must not alias ``p``: blocks read their neighbours' planes of p
     while others write p'."""
+    if not store_ap and out_ap is not None:
+        raise ValueError("out_ap given with store_ap=False")
     grid = (op.nz, op.ny, op.nx)
     check_tensors(r, STENCIL_DTYPES, r=(r, grid, None), p=(p, grid, None),
                   beta=(beta, (1,), scalar_dtype(r.dtype)), halo=(halo, (4, op.ny, op.nx), None),
@@ -269,14 +286,62 @@ def update_p_apply(op: StencilOperator, r, p, beta, halo=None, *, out_p=None, ou
     partials = _partials(op, r, partials)
     if r.device.type == "cpu":
         return update_p_apply_plain(op, r, p, beta, halo, out_p=out_p, out_ap=out_ap,
-                                    partials=partials, active=active)
+                                    partials=partials, active=active, store_ap=store_ap)
     out_p = torch.empty_like(r) if out_p is None else out_p
-    out_ap = torch.empty_like(r) if out_ap is None else out_ap
+    if out_ap is None and store_ap:
+        out_ap = torch.empty_like(r)
     halo_r = None if halo is None else halo[0:2]
     halo_p = None if halo is None else halo[2:4]
     _launch(op, r, p, beta, halo_r, halo_p, out_p, out_ap, partials, active, True, True)
     _count(update_p_apply, r.dtype)
+    if not store_ap:
+        update_p_apply.launches_noap += 1
+        if r.dtype == torch.bfloat16:
+            update_p_apply.launches_noap_bf16 += 1
     return out_p, out_ap, partials
 
 
 update_p_apply.launches = update_p_apply.launches_bf16 = 0
+# of them, without the Ap' store (one device's pallas_fused path)
+update_p_apply.launches_noap = update_p_apply.launches_noap_bf16 = 0
+
+
+# -------------------------------------------------------------------- K4s
+
+
+def update_x_r_stencil_plain(op, x, r, p, alpha, *, partials=None, active=None):
+    """Plain torch K4s: K4's plain update (``fused_cg.update_x_r_plain``)
+    with Ap = A p rounded to the vectors' dtype, as K3 stores it."""
+    # inactive: nothing is written, and A p is not computed
+    ap = p if _inactive(active) else _apply_halo(op, p, None, None).to(p.dtype)
+    return update_x_r_plain(x, r, p, ap, alpha, partials=partials, active=active)
+
+
+def update_x_r_stencil(op: StencilOperator, x, r, p, alpha, *, partials=None, active=None):
+    """K4s: x += alpha p and r -= alpha A p in place, on the (nz, ny, nx)
+    grid of one device (no halo planes), with per-block partials of the new
+    r . r (as many as K3 writes). Returns (x, r, partials).
+
+    ``x`` and ``r`` must not alias ``p``: blocks read their neighbours'
+    planes of p while others write x and r."""
+    grid = (op.nz, op.ny, op.nx)
+    check_tensors(x, STENCIL_DTYPES, x=(x, grid, None), r=(r, grid, None), p=(p, grid, None),
+                  alpha=(alpha, (1,), scalar_dtype(x.dtype)), active=(active, *_ACTIVE))
+    _no_alias(x, p)
+    _no_alias(r, p)
+    partials = _partials(op, x, partials)
+    if x.device.type == "cpu":
+        return update_x_r_stencil_plain(op, x, r, p, alpha, partials=partials, active=active)
+    lib = load_library()
+    fn = {torch.float32: lib.hpccg_stencil_update_f32, torch.float64: lib.hpccg_stencil_update_f64,
+          torch.bfloat16: lib.hpccg_stencil_update_bf16}[x.dtype]
+    # the C entry points launch on the current device, which must be the stream's
+    with torch.cuda.device(x.device):
+        err = fn(_ptr(x), _ptr(r), _ptr(p), _ptr(alpha), _ptr(partials), _ptr(active), op.nx, op.ny, op.nz,
+                 op.stencil.value, torch.cuda.current_stream(x.device).cuda_stream)
+    check_launch(err, "stencil update kernel")
+    _count(update_x_r_stencil, x.dtype)
+    return x, r, partials
+
+
+update_x_r_stencil.launches = update_x_r_stencil.launches_bf16 = 0

@@ -123,6 +123,7 @@ from hpccg_tpu_torch.ops.cuda.stencil import (
     spmv_stencil_pap,
     spmv_stencil_pap_dd,
     update_p_apply,
+    update_x_r_stencil,
 )
 from hpccg_tpu_torch.ops.cuda.streamkernel import cg_solve_stream
 from hpccg_tpu_torch.utils import trace
@@ -348,7 +349,13 @@ def cg_solve_fused(
     ``b``/``x0`` are flat or sharded (``op`` is then one rank's block);
     ``halo2(vs)`` / ``halo4(rs, ps)`` give each rank's external z-planes
     ((2, ny, nx) of v, or (4, ny, nx) of r and p; ``parallel.halo``), None
-    on a single device."""
+    on a single device. Passing ``halo4`` or not selects the route. Without
+    it K3 stores no Ap' and K4s takes K4's place, recomputing A p' from p':
+    Ap' never goes to device memory (8 vector passes an iteration, not 10).
+    With it (the distributed tier; on one device ``halo4=lambda rs, ps:
+    [None]`` gives the same K3 + K4 route) K3 stores Ap' for K4, since A p'
+    would need the neighbours' p' planes, which the exchange does not
+    give."""
     phases = _Phases() if trace.enabled() else None
     flat = isinstance(b, torch.Tensor)
     bs, x0s = _shards(b), _shards(x0)
@@ -356,6 +363,7 @@ def cg_solve_fused(
     dev = devs[0]
     none = [None] * len(bs)
     halo2 = halo2 or (lambda vs: none)
+    recompute = halo4 is None
     halo4 = halo4 or (lambda rs, ps: none)
     check_every = check_every or default_check_every(dev)
     g = op.grid
@@ -363,24 +371,32 @@ def cg_solve_fused(
     st = CGScalars.new(sdt, max_iter, tolerance, dev)
     Ap = tuple(spmv_stencil(op, g(v), h).reshape(-1) for v, h in zip(x0s, halo2(x0s)))
     r = _sub(bs, Ap)
+    if recompute:  # K4s recomputes Ap: no buffer for it
+        Ap = none
     cg_finalize(_dot_parts(r, r, dev, sdt), st, STEP_INIT)
     x = tuple(v.clone() for v in x0s)
     p = tuple(v.clone() for v in x0s)
     p_next = tuple(torch.empty_like(v) for v in p)
     part3 = RankPartials([num_partials(op, d) for d in devs], sdt, devs)
-    part4 = RankPartials([num_update_partials(v.numel(), v.device) for v in bs], sdt, devs)
+    n4 = [num_partials(op, d) if recompute else num_update_partials(v.numel(), d) for v, d in zip(bs, devs)]
+    part4 = RankPartials(n4, sdt, devs)
     for it in range(max_iter - 1):
         if _stopped(st, it, check_every, phases):
             break
         for i, h in enumerate(halo4(r, p)):
             d = devs[i]
-            update_p_apply(op, g(r[i]), g(p[i]), st.beta.to(d), h, out_p=g(p_next[i]), out_ap=g(Ap[i]),
-                           partials=part3.parts[i], active=st.active.to(d))
+            update_p_apply(op, g(r[i]), g(p[i]), st.beta.to(d), h, out_p=g(p_next[i]),
+                           out_ap=None if recompute else g(Ap[i]), partials=part3.parts[i],
+                           active=st.active.to(d), store_ap=not recompute)
         p, p_next = p_next, p
         cg_finalize(part3.gather(), st, STEP_PAP)
         for i in range(len(bs)):
             d = devs[i]
-            update_x_r(x[i], r[i], p[i], Ap[i], st.alpha.to(d), partials=part4.parts[i], active=st.active.to(d))
+            alpha, parts, active = st.alpha.to(d), part4.parts[i], st.active.to(d)
+            if recompute:
+                update_x_r_stencil(op, g(x[i]), g(r[i]), g(p[i]), alpha, partials=parts, active=active)
+            else:
+                update_x_r(x[i], r[i], p[i], Ap[i], alpha, partials=parts, active=active)
         cg_finalize(part4.gather(), st, STEP_RR)
     if phases is not None:
         phases.close()

@@ -14,8 +14,8 @@ parent, change, change, parent, and prints:
   ``chip_smoke._graph_ms``), 27-point, in float32 at 100^3 and 256^3 and in
   bfloat16 at 256^3;
 - slope-timed us per CG iteration (CUDA events, legs of 65 and 1025
-  iterations) of ``pallas_fused`` (K3, K4 and two finalize steps an
-  iteration) and of the whole solves ``megakernel`` (K5) and
+  iterations) of ``pallas_fused`` (K3 without its Ap' store, K4s and two
+  finalize steps an iteration) and of the whole solves ``megakernel`` (K5) and
   ``streamkernel`` (K6) at 100^3 and 256^3 float32 and 256^3 bfloat16;
 - slope-timed us per iteration of K15 (cg) and K16 (pipecg) at 1 x 100^3
   float32 (legs of 17 and 97);

@@ -1,4 +1,4 @@
-"""Time the stencil kernels K1-K3 at several tile constants on the card.
+"""Time the stencil kernels K1-K3 and K4s at several tile constants on the card.
 
     python3 scripts/stencil_tile_sweep.py [VARIANT ...]
 
@@ -12,9 +12,11 @@ constant around the defaults. Each variant is a copy of
 whose ``csrc/stencil.cu`` starts with the four ``#define HPCCG_STENCIL_*``
 lines; the copies are built in parallel first. Then each variant runs in
 its own process, in the order given and again in reverse, checks K3 against
-its plain version (p' bit for bit, Ap' within 1e-5 of max|Ap'|) and prints
-the device time of one launch (CUDA-graph replays,
-``chip_smoke._graph_ms``) of K1, K2 and K3, 27-point, in float32 at 100^3
+its plain version (p' bit for bit, Ap' within 1e-5 of max|Ap'|) and K3
+without its Ap' store and K4s against K3 and K4 (p', x' and r' bit for
+bit), and prints the device time of one launch (CUDA-graph replays,
+``chip_smoke._graph_ms``) of K1, K2, K3 and K4s (alpha 0, so that x and r
+stay as they are), 27-point, in float32 at 100^3
 and 256^3, in bfloat16 at 256^3 and in float64 at 100^3 (K2 is K7 there),
 with the z chunk and the blocks of each grid. Runs on a CUDA card only.
 """
@@ -46,6 +48,7 @@ sys.path.insert(0, ".")
 import chip_smoke as cs
 from hpccg_tpu_torch.config import Stencil
 from hpccg_tpu_torch.operators import StencilOperator
+from hpccg_tpu_torch.ops.cuda import fused_cg as fc
 from hpccg_tpu_torch.ops.cuda import stencil as st
 f32, f64, bf16 = torch.float32, torch.float64, torch.bfloat16
 gen = torch.Generator(device="cuda").manual_seed(3)
@@ -53,17 +56,24 @@ line = []
 for dims, dtype in (((100,) * 3, f32), ((256,) * 3, f32), ((256,) * 3, bf16), ((100,) * 3, f64)):
     op = StencilOperator(*dims, Stencil.S27, dtype)
     grid = dims[::-1]
-    r, p = (torch.randn(grid, generator=gen, device="cuda").to(dtype) for _ in range(2))
+    r, p, x = (torch.randn(grid, generator=gen, device="cuda").to(dtype) for _ in range(3))
     beta = torch.tensor([0.37], device="cuda", dtype=f64 if dtype == f64 else f32)
     pp, ap, _ = st.update_p_apply(op, r, p, beta)
     pp0, ap0, _ = st.update_p_apply_plain(op, r, p, beta)
     err = float((ap.double() - ap0.double()).abs().max() / ap0.double().abs().max())
     assert torch.equal(pp, pp0) and err <= (1e-5 if dtype != bf16 else 2.0 ** -8), (dims, dtype, err)
+    pn = st.update_p_apply(op, r, p, beta, store_ap=False)[0]
+    xs, rs, xk, rk = x.clone(), r.clone(), x.clone(), r.clone()
+    st.update_x_r_stencil(op, xs, rs, pn, beta)
+    fc.update_x_r(xk, rk, pp, ap, beta)
+    assert torch.equal(pn, pp) and torch.equal(xs, xk) and torch.equal(rs, rk), (dims, dtype, "K4s")
+    zero = torch.zeros_like(beta)
     out, out2 = torch.empty_like(r), torch.empty_like(r)
     parts = torch.empty((st.num_partials(op, "cuda"),), device="cuda", dtype=beta.dtype)
     fns = {"K1": lambda: st.spmv_stencil(op, r, out=out),
            "K2": lambda: st.spmv_stencil_pap(op, r, out=out, partials=parts),
-           "K3": lambda: st.update_p_apply(op, r, p, beta, out_p=out, out_ap=out2, partials=parts)}
+           "K3": lambda: st.update_p_apply(op, r, p, beta, out_p=out, out_ap=out2, partials=parts),
+           "K4s": lambda: st.update_x_r_stencil(op, xs, rs, p, zero, partials=parts)}
     geo = st.tile_geometry(*dims, dtype)
     line.append(f"{dims[0]}^3 {str(dtype)[6:]} (zc {geo.z_chunk}, {geo.blocks} blocks): "
                 + " ".join(f"{k}={cs._graph_ms(fn) * 1e3:.2f}" for k, fn in fns.items()))

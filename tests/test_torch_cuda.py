@@ -876,16 +876,21 @@ def _plain_k1_k4():
         y, part = st.spmv_stencil_pap_plain(op, u, halo, out=out, active=active)
         return y, into(partials, part)
 
-    def k3(op, r, p, beta, halo=None, *, out_p=None, out_ap=None, partials=None, active=None):
-        pp, ap, part = st.update_p_apply_plain(op, r, p, beta, halo, out_p=out_p, out_ap=out_ap, active=active)
+    def k3(op, r, p, beta, halo=None, *, out_p=None, out_ap=None, partials=None, active=None, store_ap=True):
+        pp, ap, part = st.update_p_apply_plain(op, r, p, beta, halo, out_p=out_p, out_ap=out_ap, active=active,
+                                               store_ap=store_ap)
         return pp, ap, into(partials, part)
 
     def k4(x, r, p, ap, alpha, *, partials=None, active=None):
         x, r, part = fc.update_x_r_plain(x, r, p, ap, alpha, active=active)
         return x, r, into(partials, part)
 
+    def k4s(op, x, r, p, alpha, *, partials=None, active=None):
+        x, r, part = st.update_x_r_stencil_plain(op, x, r, p, alpha, active=active)
+        return x, r, into(partials, part)
+
     return mock.patch.multiple("hpccg_tpu_torch.solver", spmv_stencil=st.spmv_stencil_plain,
-                               spmv_stencil_pap=k2, update_p_apply=k3, update_x_r=k4)
+                               spmv_stencil_pap=k2, update_p_apply=k3, update_x_r=k4, update_x_r_stencil=k4s)
 
 
 @pytest.mark.parametrize("backend", ["pallas", "pallas_fused", "pallas_v1"])
@@ -895,12 +900,12 @@ def test_bf16_kernel_backends_match_plain(cuda_device, backend):
     within WS_TRACE bf16 (as K5/K6 against theirs); against the bf16 whole
     solve (which rounds at other places: K6 never stores Ap') within 5e-2
     above 1e-3 of trace[0], chip_smoke's bound for two bf16 recurrences;
-    pallas_fused launches K3 and K4 once per iteration."""
+    pallas_fused launches K3 and K4s once per iteration."""
     prob = generate_problem(ProblemConfig(32, 32, 32, dtype=torch.bfloat16), cuda_device)
     with _plain_k1_k4():
         want = make_cg(prob.A, max_iter=40, tolerance=0.0, backend=backend)(prob.b, prob.x0)
     ref = make_cg(prob.A, max_iter=40, tolerance=0.0, backend="streamkernel")(prob.b, prob.x0)
-    before = (st.update_p_apply.launches_bf16, fc.update_x_r.launches_bf16)
+    before = (st.update_p_apply.launches_bf16, st.update_x_r_stencil.launches_bf16)
     res = make_cg(prob.A, max_iter=40, tolerance=0.0, backend=backend)(prob.b, prob.x0)
     assert int(res.niters) == int(want.niters) == int(ref.niters) == 39 and res.x.dtype == torch.bfloat16
     rtol, floor = WS_TRACE[torch.bfloat16]
@@ -909,7 +914,8 @@ def test_bf16_kernel_backends_match_plain(cuda_device, backend):
     head = ref.trace > 1e-3 * ref.trace[0]
     torch.testing.assert_close(res.trace[head], ref.trace[head], rtol=5e-2, atol=0)
     if backend == "pallas_fused":
-        assert (st.update_p_apply.launches_bf16 - before[0], fc.update_x_r.launches_bf16 - before[1]) == (39, 39)
+        assert (st.update_p_apply.launches_bf16 - before[0],
+                st.update_x_r_stencil.launches_bf16 - before[1]) == (39, 39)
 
 
 # ----------------------------- K1-K4 at the edges of the stencil kernels' tile
@@ -1059,6 +1065,178 @@ def test_kernels_on_unaligned_views(cuda_device, dtype):
         assert torch.equal(x1, x2) and torch.equal(r1, r2)
         _sum_close(parts.sum(), parts0.sum(), dtype)
     torch.cuda.synchronize()
+
+
+# ----------------------- K4s: the stencil CG update that recomputes Ap' from p'
+
+
+def _rnd(gen, device, dtype, *shape):
+    return torch.randn(shape, generator=gen, device=device, dtype=torch.float64).to(dtype)
+
+
+def _scalars(dtype, device):
+    sdt = torch.float64 if dtype == torch.float64 else torch.float32
+    return torch.tensor([0.37], device=device, dtype=sdt), torch.tensor([0.29], device=device, dtype=sdt)
+
+
+def _k3_k4s(op, x, r, p, beta, alpha):
+    """K3 without Ap' and K4s on copies of x and r: (p', x', r', K3's
+    partials, K4s's partials)."""
+    pp, ap, part3 = st.update_p_apply(op, r, p, beta, store_ap=False)
+    assert ap is None
+    xs, rs = x.clone(), r.clone()
+    _, _, part4 = st.update_x_r_stencil(op, xs, rs, pp, alpha)
+    return pp, xs, rs, part3, part4
+
+
+def _k3_k4(op, x, r, p, beta, alpha):
+    """The same iteration as K3 with Ap' and K4 (the K3 + K4 sequence)."""
+    pp, ap, part3 = st.update_p_apply(op, r, p, beta)
+    xs, rs = x.clone(), r.clone()
+    _, _, part4 = fc.update_x_r(xs, rs, pp, ap, alpha)
+    return pp, xs, rs, part3, part4
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stencil", [27, 7])
+@pytest.mark.parametrize("edge", EDGES)
+def test_k4s_matches_plain_and_k3_k4_at_tile_edges(cuda_device, edge, stencil, dtype):
+    """K3 without Ap' and K4s on grids at the stencil tile's edges, against
+    K3 with Ap' and K4: p', x', r' and K3's partials bit for bit (K4s forms
+    A p' as K3 forms Ap', FMA contraction included), the new r.r's sums
+    within _sum_close (K4 and K4s group the partials differently); against
+    their plain versions: p' and x' bit for bit, r' within _close (A p' as
+    Ap' is), the partials' sums within _sum_close; as many partials as K3;
+    a repeat gives the same bits."""
+    nx, ny, nz = _edge_shape(edge, dtype)
+    op = StencilOperator(nx, ny, nz, Stencil(stencil), dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    x, r, p = (_rnd(gen, cuda_device, dtype, nz, ny, nx) for _ in range(3))
+    beta, alpha = _scalars(dtype, cuda_device)
+    before = (st.update_x_r_stencil.launches, st.update_x_r_stencil.launches_bf16)
+    got = _k3_k4s(op, x, r, p, beta, alpha)
+    assert all(torch.equal(a, b) for a, b in zip(got, _k3_k4s(op, x, r, p, beta, alpha)))
+    assert (st.update_x_r_stencil.launches - before[0], st.update_x_r_stencil.launches_bf16 - before[1]) == \
+        (2, 2 if dtype == torch.bfloat16 else 0)
+    pp, xs, rs, part3, part4 = got
+    assert part4.shape == (st.num_partials(op, cuda_device),)
+    want = _k3_k4(op, x, r, p, beta, alpha)
+    assert all(torch.equal(a, b) for a, b in zip(got[:4], want[:4]))
+    _sum_close(part4.sum(), want[4].sum(), dtype)
+    xp, rp = x.clone(), r.clone()
+    _, _, part_p = st.update_x_r_stencil_plain(op, xp, rp, pp, alpha)
+    assert torch.equal(xs, xp)
+    _close(rs, rp, dtype)
+    _sum_close(part4.sum(), part_p.sum(), dtype)
+    _sum_close(part3.sum(), st.update_p_apply_plain(op, r, p, beta, store_ap=False)[2].sum(), dtype)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16])
+def test_k4s_on_unaligned_views_and_inactive(cuda_device, dtype):
+    """K4s on x, r and p' that are views at odd element offsets (narrower
+    accesses; x and r loaded in the emit) against K3 with Ap' and K4 there,
+    bit for bit; with ``active`` = 0 K4s and K3 without Ap' write
+    nothing."""
+    nx, ny, nz = 100, 9, 7
+    n = nx * ny * nz
+    op = StencilOperator(nx, ny, nz, Stencil.S27, dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x, r, p = (_at(n, off, gen, cuda_device, dtype).view(nz, ny, nx) for off in (1, 3, 5))
+    beta, alpha = _scalars(dtype, cuda_device)
+    want = _k3_k4(op, x, r, p, beta, alpha)
+    pp = _at(n, 7, gen, cuda_device, dtype).view(nz, ny, nx)
+    _, _, part3 = st.update_p_apply(op, r, p, beta, out_p=pp, store_ap=False)
+    xs, rs = (_at(n, 1, gen, cuda_device, dtype).view(nz, ny, nx).copy_(v) for v in (x, r))
+    _, _, part4 = st.update_x_r_stencil(op, xs, rs, pp, alpha)
+    assert all(torch.equal(a, b) for a, b in zip((pp, xs, rs, part3), want[:4]))
+    _sum_close(part4.sum(), want[4].sum(), dtype)
+    off = torch.zeros((1,), dtype=torch.int32, device=cuda_device)
+    parts = torch.full_like(part4, 5.0)
+    xs, rs, out = x.clone(), r.clone(), torch.full_like(x, 7.0)
+    st.update_x_r_stencil(op, xs, rs, p, alpha, partials=parts, active=off)
+    st.update_p_apply(op, r, p, beta, out_p=out, partials=parts, active=off, store_ap=False)
+    assert torch.equal(xs, x) and torch.equal(rs, r) and bool((out == 7.0).all()) and bool((parts == 5.0).all())
+    torch.cuda.synchronize()
+
+
+FUSED_SHAPES = [(64, 64, 64), (101, 37, 45)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dims", FUSED_SHAPES)
+def test_fused_solve_steps_match_k3_k4_bit_for_bit(cuda_device, dims, dtype):
+    """The iterations of a single-device pallas_fused solve (K3 without Ap',
+    finalize, K4s, finalize), each held against K3 with Ap' and K4 from the
+    same state and scalars: p', x, r and K3's partials bit for bit at every
+    iteration of 40; the recurrence then differs from the K3 + K4 sequence
+    only in the order in which r.r's partials are summed."""
+    prob = generate_problem(ProblemConfig(*dims, dtype=dtype), cuda_device)
+    op, g = prob.A, prob.A.grid
+    sdt = torch.float64 if dtype == torch.float64 else torch.float32
+    sc = fc.CGScalars.new(sdt, 41, 0.0, cuda_device)
+    x, p = g(prob.x0.clone()), g(prob.x0.clone())
+    r = g(prob.b - st.spmv_stencil(op, g(prob.x0)).reshape(-1))
+    fc.cg_finalize(torch.dot(r.reshape(-1).to(sdt), r.reshape(-1).to(sdt)).reshape(1), sc, fc.STEP_INIT)
+    for _ in range(40):
+        pp, ap, part3 = st.update_p_apply(op, r, p, sc.beta, store_ap=False)
+        pk, apk, part3k = st.update_p_apply(op, r, p, sc.beta)
+        assert ap is None and torch.equal(pp, pk) and torch.equal(part3, part3k)
+        fc.cg_finalize(part3, sc, fc.STEP_PAP)
+        xk, rk = x.clone(), r.clone()
+        fc.update_x_r(xk, rk, pk, apk, sc.alpha)
+        _, _, part4 = st.update_x_r_stencil(op, x, r, pp, sc.alpha)
+        assert torch.equal(x, xk) and torch.equal(r, rk)
+        fc.cg_finalize(part4, sc, fc.STEP_RR)
+        p = pp
+    assert int(sc.ic[fc.IC_K]) == 41
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dims", FUSED_SHAPES)
+def test_fused_solve_launches_k4s_and_matches_the_k4_route(cuda_device, dims, dtype):
+    """make_cg(backend="pallas_fused") on one device launches K3 and K4s
+    once an iteration and K4 never; against ``cg_solve_fused`` on the K3 +
+    K4 route (``halo4`` given): niters equal, the trace within WS_TRACE and
+    x within WS_X_RTOL (bf16: the trace only). They are not bit-identical:
+    K4 and K4s add the new r.r's partials in another order. Every K3
+    launch of the first is counted in ``launches_noap`` too, none of the
+    second."""
+    from hpccg_tpu_torch.solver import cg_solve_fused
+
+    prob = generate_problem(ProblemConfig(*dims, dtype=dtype), cuda_device)
+    n = 40 if dtype == torch.bfloat16 else 150
+    counters = [(st.update_p_apply, "launches"), (st.update_x_r_stencil, "launches"), (fc.update_x_r, "launches"),
+                (st.update_p_apply, "launches_noap"), (st.update_p_apply, "launches_noap_bf16")]
+    bf = n - 1 if dtype == torch.bfloat16 else 0
+    before = [getattr(w, a) for w, a in counters]
+    res = make_cg(prob.A, max_iter=n, tolerance=0.0, backend="pallas_fused")(prob.b, prob.x0)
+    torch.cuda.synchronize()
+    assert [getattr(w, a) - b for (w, a), b in zip(counters, before)] == [n - 1, n - 1, 0, n - 1, bf]
+    before = [getattr(w, a) for w, a in counters]
+    want = cg_solve_fused(prob.A, prob.b, prob.x0, max_iter=n, halo4=lambda rs, ps: [None])
+    assert [getattr(w, a) - b for (w, a), b in zip(counters, before)] == [n - 1, 0, n - 1, 0, 0]
+    assert int(res.niters) == int(want.niters) == n - 1
+    rtol, floor = WS_TRACE[dtype]
+    head = want.trace > floor * want.trace[0]
+    torch.testing.assert_close(res.trace[head], want.trace[head], rtol=rtol, atol=0)
+    if dtype != torch.bfloat16:
+        _x_close(res.x, want.x)
+
+
+def test_distributed_fused_solve_keeps_k4(cuda_device):
+    """The distributed pallas_fused solve (halo planes from the exchange)
+    keeps K3 with Ap' and K4 on every rank: two ranks of one card, 19
+    iterations, 38 launches of each and none of K4s or of K3 without its
+    Ap' store."""
+    cfg, prob = _sharded(cuda_device, 2, (16, 12, 8), torch.float64)
+    mesh = make_mesh(2, devices=[cuda_device] * 2)
+    counters = [(st.update_p_apply, "launches"), (fc.update_x_r, "launches"), (st.update_x_r_stencil, "launches"),
+                (st.update_p_apply, "launches_noap")]
+    before = [getattr(w, a) for w, a in counters]
+    res = make_distributed_cg(cfg, mesh, max_iter=20, backend="pallas_fused")(prob.b, prob.x0)
+    assert int(res.niters) == 19
+    assert [getattr(w, a) - b for (w, a), b in zip(counters, before)] == [38, 38, 0, 0]
 
 
 def test_probes_match_plain(cuda_device):
