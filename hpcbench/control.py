@@ -8,7 +8,8 @@ one process, and prints one JSON line per seed with the numbers compared
 the lower readings of each limit; ``--system float32`` puts the control in
 the program's place, the plain reference computed in float32 (the nearest
 precision below the configuration's float64), whose numbers the limits
-must fail. The benchmark's own runs never run this.
+must fail. On a cell of several cards the control runs on the first
+card alone. The benchmark's own runs never run this.
 """
 
 from __future__ import annotations
@@ -52,12 +53,12 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     system = None
     if args.system == "float32":
-        def system(config, problem, device, spans):
-            return reference_runner(config, problem, device)
+        def system(config, problem, devices, spans):
+            return reference_runner(config, problem, devices[0])
     bench = Bench()
     for seed in (int(s) for s in args.seeds.split(",")):
         out = run_cell(bench, args.workload, seed, args.seconds, False, device=args.device,
-                       system=system)
+                       system=system, all_cards=system is None)
         print(json.dumps({"seed": seed, "system": args.system, "correct": out["correct"],
                           "attempted": out["attempted"], "metrics": out["metrics"], "notes": out["notes"],
                           "checks": out["checks"]}), flush=True)

@@ -1,5 +1,6 @@
 """solver.launches_per_iter (launches/iter): the kernels the device ran in
-the traced stretch over the CG iterations of its solves."""
+the traced stretch over the CG iterations of its solves; on several cards,
+every card's kernels (what the host issues) over the iterations."""
 
 
 def read(ctx):

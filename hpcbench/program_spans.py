@@ -66,7 +66,7 @@ def collect(ctx, limits: dict) -> None:
         for i in range(int(ctx.traffic["trace_solves"])):
             k = i % len(runner.rhs)
             res = runner.solve(k)
-            niters, normr = run.finish(res, ctx.device)
+            niters, normr = run.finish(res, ctx.devices)
             solves.append((k, niters, normr, res.trace.to("cpu", torch.float64)))
             if i < nsamples:
                 samples.append((i, k, runner.to_input_basis(res.x)))

@@ -10,12 +10,18 @@ whole solves for ``--seconds`` (``--trace 0``) or a short stretch of them
 under torch.profiler (``--trace 1``). After the window the plain reference
 solves each right-hand side once and the comparison decides ``correct``.
 
+A cell of ``chips`` cards runs on ``cuda:0`` ... ``cuda:{chips-1}`` (on the
+CPU, ``chips`` ranks on ``"cpu"``): the builder is told those devices, the
+inputs and the reference stay on the first, every fence waits for all of
+them, and ``device.count`` is the number of cards the run was seen to use.
+
 The last line of standard output is one JSON object: ``correct``,
 ``attempted``, ``failed``, ``metrics``, ``device``, with ``--trace 1``
 ``breakdown``, then ``notes`` and, last, ``checks`` (each number compared
 with its limit; they are also the last lines of standard error). Exit
 codes: 2 without the GPUs the cell asks for, 3 when a module of JAX or of
-the JAX package was loaded, 1 on any other failure; no result then.
+the JAX package was loaded, 1 when the run used fewer cards than the cell's
+``chips`` or on any other failure; no result then.
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ import subprocess
 import sys
 import time
 from contextlib import contextmanager
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -59,7 +65,9 @@ class Spans:
 
 @dataclasses.dataclass
 class Context:
-    """What a run measured; the metric readers read it."""
+    """What a run measured; the metric readers read it. ``device`` is the
+    first of the cell's ``devices``, where the inputs and the reference
+    live."""
 
     cell: dict
     config: dict
@@ -75,22 +83,79 @@ class Context:
     window_s: Optional[float] = None  # window start to the last completion
     stretch: object = None  # trace.Stretch of a traced run
     stretch_iters: int = 0
+    devices: tuple = ()  # the cell's devices (default: ``device`` alone)
+
+    def __post_init__(self):
+        self.devices = tuple(torch.device(d) for d in (self.devices or (self.device,)))
 
     @property
     def explicit(self) -> bool:
         return self.config["form"] == "arrays"
 
+    @property
+    def chips(self) -> int:
+        return len(self.devices)
 
-def fence(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
+
+def cell_devices(kind: str, chips: int) -> tuple:
+    """The devices of a cell of ``chips`` cards: ``cuda:0`` ...
+    ``cuda:{chips-1}``, or on the CPU ``chips`` ranks on ``cpu``."""
+    if torch.device(kind).type == "cuda":
+        return tuple(torch.device("cuda", i) for i in range(chips))
+    return (torch.device(kind),) * chips
 
 
-def finish(res, device) -> tuple:
-    """Wait until the result is on the host; returns (niters, normr)."""
+def card_indexes(devices: Sequence) -> list:
+    """The distinct CUDA cards among ``devices``, by index, in order."""
+    out = []
+    for d in map(torch.device, devices):
+        if d.type == "cuda" and d.index not in out:
+            out.append(d.index)
+    return out
+
+
+def fence(devices: Sequence) -> None:
+    """Wait for the work queued on every card of the cell."""
+    for i in card_indexes(devices):
+        torch.cuda.synchronize(i)
+
+
+def finish(res, devices: Sequence) -> tuple:
+    """Wait until the result is on the host and every card has finished;
+    returns (niters, normr)."""
     niters, normr = int(res.niters), float(res.normr)
-    fence(device)
+    fence(devices)
     return niters, normr
+
+
+class Cards:
+    """The cell's cards' memory: their peaks reset before set-up, and the
+    allocation each held then, so that a card whose allocation rose during
+    the run counts as used."""
+
+    def __init__(self, devices: Sequence):
+        self.cards = card_indexes(devices)
+        self.base = {}
+
+    def reset(self) -> None:
+        for i in self.cards:
+            torch.cuda.synchronize(i)
+            torch.cuda.reset_peak_memory_stats(i)
+            self.base[i] = torch.cuda.memory_allocated(i)
+
+    def peaks(self) -> dict:
+        return {i: torch.cuda.max_memory_allocated(i) for i in self.cards}
+
+
+class UnusedCards(RuntimeError):
+    """The run used fewer cards than the cell's ``chips``."""
+
+
+def used_cards(cards: Sequence, base: dict, peaks: dict, ran: Sequence = ()) -> list:
+    """The cards that a run used: those whose allocated memory rose above
+    what they held when the peaks were reset, and those that ran kernels in
+    the traced stretch (``ran``)."""
+    return [i for i in cards if peaks[i] > base.get(i, 0) or i in ran]
 
 
 class Reservoir:
@@ -126,14 +191,14 @@ def set_up(ctx: Context, system: Optional[Callable]):
         ctx.build_s = build()
         load_library()
     if system is None:
-        runner = systems.setup(ctx.config["system"], ctx.config, ctx.problem, ctx.device, spans)
+        runner = systems.setup(ctx.config["system"], ctx.config, ctx.problem, ctx.devices, spans)
     else:
-        runner = system(ctx.config, ctx.problem, ctx.device, spans)
+        runner = system(ctx.config, ctx.problem, ctx.devices, spans)
     nrhs = len(runner.rhs)
     held = []  # as many results alive at once as the window's sample holds
     for i in range(max(nrhs, int(ctx.traffic["x_samples"]) + 1)):
         res = runner.solve(i % nrhs)
-        finish(res, ctx.device)
+        finish(res, ctx.devices)
         held.append(res)
     del held, res
     ctx.setup_s = time.perf_counter() - t0
@@ -153,7 +218,7 @@ def window(ctx: Context, runner, seconds: float, sample: Reservoir) -> list:
         k = i % nrhs
         t0 = time.perf_counter()
         res = runner.solve(k)
-        niters, normr = finish(res, ctx.device)
+        niters, normr = finish(res, ctx.devices)
         t1 = time.perf_counter()
         ctx.times.append(t1 - t0)
         ctx.iters.append(niters)
@@ -171,24 +236,32 @@ def traced(ctx: Context, runner, nsolves: int, sample: Reservoir) -> list:
     def one(i):
         k = i % nrhs
         res = runner.solve(k)
-        niters, normr = finish(res, ctx.device)
+        niters, normr = finish(res, ctx.devices)
         sample.offer((i, k, res.x))
         return k, niters, normr, res.trace
 
-    ctx.stretch = profile_stretch(one, nsolves, ctx.device)
+    ctx.stretch = profile_stretch(one, nsolves, card_indexes(ctx.devices))
     solves, ctx.stretch.outputs = ctx.stretch.outputs, None
     ctx.stretch_iters = sum(s[1] for s in solves)
     return solves
 
 
-def device_info(ctx: Context) -> dict:
+def device_info(ctx: Context, cards: Cards) -> tuple:
+    """The line's ``device`` and the cards the run used. ``count`` is
+    measured (``used_cards``), never copied from ``chips``; off a card it is
+    1, the host. ``memory_peak_bytes`` is the fullest card's peak."""
     on_card = torch.device(ctx.device).type == "cuda"
-    info = {"platform": "gpu" if on_card else "cpu", "kind": ctx.device_kind, "count": 1,
-            "memory_peak_bytes": torch.cuda.max_memory_allocated(ctx.device) if on_card else 0}
+    peaks = cards.peaks()
+    ran = ctx.stretch.cards_ran if ctx.stretch is not None else ()
+    used = used_cards(cards.cards, cards.base, peaks, ran)
+    per_card = [peaks[i] for i in cards.cards]
+    info = {"platform": "gpu" if on_card else "cpu", "kind": ctx.device_kind,
+            "count": len(used) if cards.cards else 1, "memory_peak_bytes": max(per_card, default=0),
+            "memory_peak_bytes_per_card": per_card}
     if ctx.stretch is not None:
         info["busy_s"] = ctx.stretch.busy_s
         info["window_s"] = ctx.stretch.window_s
-    return info
+    return info, used
 
 
 def power_limit() -> Optional[str]:
@@ -202,39 +275,51 @@ def power_limit() -> Optional[str]:
 
 
 def run_cell(bench: Bench, cell_name: str, seed: int, seconds: float, trace: bool, device: str = "cuda",
-             system: Optional[Callable] = None) -> dict:
-    """One run of a cell; returns the result line as a dict. ``system``,
-    a ``setup(config, problem, device, spans) -> Runner``, replaces the
-    configuration's builder (the control and the tests)."""
+             system: Optional[Callable] = None, all_cards: bool = True) -> dict:
+    """One run of a cell; returns the result line as a dict. ``device``
+    is the kind of device (``cuda`` or ``cpu``), from which the cell's
+    devices follow (``cell_devices``). ``system``, a ``setup(config,
+    problem, devices, spans) -> Runner``, replaces the configuration's
+    builder (the control and the tests). Raises ``UnusedCards`` where the
+    run used fewer cards than the cell's ``chips``, unless ``all_cards`` is
+    false (the control, which runs on the first card alone)."""
     cell = bench.cell(cell_name)
     config = bench.config(cell["config"])
     traffic = bench.traffic(cell["traffic"])
     limits = bench.limits(cell_name)
     if int(traffic.get("clients", 1)) != 1 or traffic.get("loop", "closed") != "closed":
         raise ValueError("the generator drives one caller in a closed loop")
-    problem = inputs.make(config, traffic, seed, device)
-    on_card = torch.device(device).type == "cuda"
-    if on_card:
-        torch.cuda.synchronize(device)
-        torch.cuda.reset_peak_memory_stats(device)
-    ctx = Context(cell, config, traffic, problem, device,
-                  torch.cuda.get_device_name(device) if on_card else "cpu")
+    devices = cell_devices(device, int(cell["chips"]))
+    problem = inputs.make(config, traffic, seed, devices[0])
+    on_card = devices[0].type == "cuda"
+    cards = Cards(devices)
+    cards.reset()
+    ctx = Context(cell, config, traffic, problem, devices[0],
+                  torch.cuda.get_device_name(devices[0]) if on_card else "cpu", devices=devices)
     runner = set_up(ctx, system)
     sample = Reservoir(int(traffic["x_samples"]), seed)
     if trace:
         solves = traced(ctx, runner, int(traffic["trace_solves"]), sample)
     else:
         solves = window(ctx, runner, seconds, sample)
-    dev_info = device_info(ctx)
+    dev_info, used = device_info(ctx, cards)
+    if all_cards and len(used) < len(cards.cards):
+        unused = ", ".join(f"cuda:{i}" for i in cards.cards if i not in used)
+        ran = " and no kernel ran there" if trace else ""
+        raise UnusedCards(f"the cell asks for {len(cards.cards)} cards and the run used {len(used)}: the "
+                          f"memory allocated on {unused} never rose{ran}")
     notes = {"build_s": ctx.build_s, "power": power_limit() if on_card else None, **runner.notes,
              "spans": ctx.spans}
+    if ctx.stretch is not None and ctx.chips > 1:
+        notes["busy_s_per_card"] = ctx.stretch.busy_per_card()
+        notes["idle_share_per_card"] = ctx.stretch.idle_shares()
     traces = torch.stack([s[3] for s in solves]).to("cpu", torch.float64)
     solves = [(k, n, r, traces[i]) for i, (k, n, r, _) in enumerate(solves)]
     samples = [(i, k, runner.to_input_basis(x)) for i, k, x in sample.items]
     del runner, sample
     if on_card:
         torch.cuda.empty_cache()
-    matvec = reference.matvec(config["reference"], problem, torch.float64, device)
+    matvec = reference.matvec(config["reference"], problem, torch.float64, devices[0])
     refs = [cg(matvec, b.to(torch.float64), problem.x0.to(torch.float64), max_iter=config["max_iter"],
                tolerance=config["tolerance"]) for b in problem.rhs]
     verdict = check.compare(solves, refs, samples, limits)
@@ -274,7 +359,11 @@ def main(argv=None) -> int:
         print(f"hpcbench: the cell needs {chips} NVIDIA GPU(s); torch.cuda sees "
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}", file=sys.stderr)
         return 2
-    out = run_cell(bench, args.workload, args.seed, args.seconds, bool(args.trace))
+    try:
+        out = run_cell(bench, args.workload, args.seed, args.seconds, bool(args.trace))
+    except UnusedCards as e:
+        print(f"hpcbench: {e}", file=sys.stderr)
+        return 1
     loaded = forbidden_modules()
     if loaded:
         print(f"hpcbench: modules of JAX or the JAX package were loaded: {', '.join(loaded)}", file=sys.stderr)

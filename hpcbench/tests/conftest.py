@@ -1,6 +1,9 @@
 """Fixtures of the benchmark's CPU tests: the real BENCHMARK.json's cells
 cut to tiny grids in a temporary folder, so that a whole run (inputs,
-set-up, window, reference, comparison) takes a second on the CPU."""
+set-up, window, reference, comparison) takes a second on the CPU; and a
+cell of several chips added to them as files and entries only, with a
+builder that solves the z-stacked problem on a mesh of the cell's
+devices."""
 
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
 from hpcbench.registry import Bench  # noqa: E402
+from hpcbench.systems import Runner  # noqa: E402
 
 GRID = 10
 # at a tiny grid the recurrence converges past 1e-30 in 150 iterations, and
@@ -54,3 +58,47 @@ def tiny_bench(tmp: Path, grid: int = GRID, max_iter: int = 20) -> Bench:
 @pytest.fixture
 def bench(tmp_path) -> Bench:
     return tiny_bench(tmp_path)
+
+
+def mesh_cell(bench: Bench, chips: int, grid=(6, 5, 8), max_iter: int = 20) -> tuple:
+    """A cell of ``chips`` chips added to ``bench`` as files and entries
+    only: a configuration, a traffic mix on the global ``grid`` (z split
+    over the ranks), a limits file, and its entry in ``workloads``.
+    Returns (the bench with the cell, the cell's name)."""
+    base, name = bench.base, f"stencil27_f64_mesh{chips}"
+    config = json.loads((bench.root / "hpcbench/configs/stencil27_f64.json").read_text())
+    config.update(name=name, max_iter=max_iter)
+    (base / "configs" / f"{name}.json").write_text(json.dumps(config))
+    traffic = json.loads((base / "traffic" / "ref300.json").read_text())
+    traffic.update(grid=list(grid), rhs=2, x_samples=2)
+    (base / "traffic" / f"zstack{chips}.json").write_text(json.dumps(traffic))
+    cell = f"{name}.zstack{chips}"
+    (base / "checks" / f"{cell}.json").write_text(json.dumps(TINY_LIMITS))
+    spec = json.loads(json.dumps(bench.spec))
+    spec["configs"].append({"name": name, "source": "x", "reduced": ["max_iter"], "why": "x",
+                            "file": f"hpcbench/configs/{name}.json"})
+    spec["workloads"].append({"name": cell, "config": name, "traffic": f"zstack{chips}", "chips": chips,
+                              "why": "x"})
+    return Bench(root=bench.root, spec=spec, base=base), cell
+
+
+def mesh_system(backend: str = "stencil"):
+    """A builder of the z-stacked problem on a mesh of the cell's devices,
+    one rank each: ``make_distributed_cg`` on the global grid cut into
+    equal z blocks, b and x0 sharded in set-up, x unsharded for the
+    sample after the window."""
+
+    def setup(config, problem, devices, spans):
+        from hpccg_tpu_torch.config import ProblemConfig
+        from hpccg_tpu_torch.parallel.cg import make_distributed_cg
+        from hpccg_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(devices=devices)
+        nx, ny, nz = problem.grid
+        local = ProblemConfig(nx, ny, nz // mesh.size, config["stencil"], problem.dtype)
+        solve = make_distributed_cg(local, mesh, max_iter=config["max_iter"], tolerance=config["tolerance"],
+                                    backend=backend)
+        return Runner(solve, [mesh.shard(b) for b in problem.rhs], mesh.shard(problem.x0),
+                      notes={"ranks": mesh.size, "backend": backend}, unshard=mesh.unshard)
+
+    return setup

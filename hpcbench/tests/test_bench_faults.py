@@ -4,7 +4,9 @@ path broken underneath: ``correct`` has to come out false.
 The faults a cell of one chip can have: a solve that returns its state
 unchanged, half of the rows left out of the dot products (the mean taken
 over the rest), and an answer altered where it is produced (x, normr).
-No cell exchanges data between chips."""
+The faults that only a cell of several chips can have, on a four-rank CPU
+mesh (``conftest.mesh_cell``): one rank's halo plane left at zero, and one
+rank's dot-product partial dropped from the sum."""
 
 from __future__ import annotations
 
@@ -13,9 +15,12 @@ import dataclasses
 import pytest
 import torch
 
+import hpccg_tpu_torch.parallel.halo as port_halo
 import hpccg_tpu_torch.solver as port_solver
 from hpcbench import systems
 from hpcbench.run import run_cell
+
+from conftest import mesh_cell, mesh_system
 
 CELLS = ["stencil27_f64.ref300", "hpcrow27_f64.scattered128"]
 
@@ -23,8 +28,8 @@ CELLS = ["stencil27_f64.ref300", "hpcrow27_f64.scattered128"]
 def _wrapped(change):
     """A builder that runs the configuration's own and alters each result."""
 
-    def setup(config, problem, device, spans):
-        runner = systems.setup(config["system"], config, problem, device, spans)
+    def setup(config, problem, devices, spans):
+        runner = systems.setup(config["system"], config, problem, devices, spans)
         solve = runner.solve_fn
         runner.solve_fn = lambda b, x0: change(solve(b, x0), x0)
         return runner
@@ -81,5 +86,45 @@ def test_float32_control_is_not_correct(bench, cell):
     from hpcbench.control import reference_runner
 
     out = run_cell(bench, cell, 2**31 + 15, 0.2, False, device="cpu",
-                   system=lambda config, problem, device, spans: reference_runner(config, problem, device))
+                   system=lambda config, problem, devices, spans: reference_runner(config, problem, devices[0]))
     assert not out["correct"]
+
+
+def test_sound_mesh_run_is_correct(bench):
+    bench, cell = mesh_cell(bench, 4)
+    out = run_cell(bench, cell, 2**31 + 16, 0.2, False, device="cpu", system=mesh_system())
+    assert out["correct"] and out["failed"] == 0 and out["attempted"] > 0, out["checks"]
+    assert out["notes"]["ranks"] == 4
+
+
+def test_one_ranks_halo_plane_left_at_zero(bench, monkeypatch):
+    exchange = port_halo.exchange_halo
+
+    def dropped(grids):
+        planes = exchange(grids)
+        below, above = planes[2]
+        planes[2] = (torch.zeros_like(below), above)  # rank 2 never receives rank 1's top plane
+        return planes
+
+    monkeypatch.setattr(port_halo, "exchange_halo", dropped)
+    bench, cell = mesh_cell(bench, 4)
+    out = run_cell(bench, cell, 2**31 + 17, 0.2, False, device="cpu", system=mesh_system())
+    assert not out["correct"] and out["failed"] == out["attempted"]
+    assert out["checks"]["trace_rel"]["value"] > out["checks"]["trace_rel"]["limit"]
+
+
+def test_one_ranks_dot_partial_dropped(bench, monkeypatch):
+    dot_parts = port_solver._dot_parts
+
+    def dropped(us, vs, device, dtype=None):
+        parts = dot_parts(us, vs, device, dtype)
+        if len(us) > 1:
+            parts = parts.clone()
+            parts[1] = 0  # rank 1's partial left out of the allreduce
+        return parts
+
+    monkeypatch.setattr(port_solver, "_dot_parts", dropped)
+    bench, cell = mesh_cell(bench, 4)
+    out = run_cell(bench, cell, 2**31 + 18, 0.2, False, device="cpu", system=mesh_system())
+    assert not out["correct"] and out["failed"] == out["attempted"]
+    assert out["checks"]["trace_rel"]["value"] > out["checks"]["trace_rel"]["limit"]

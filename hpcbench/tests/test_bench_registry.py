@@ -12,6 +12,8 @@ import pytest
 from hpcbench.registry import Bench
 from hpcbench.run import run_cell
 
+from conftest import mesh_cell, mesh_system
+
 ROOT = Path(__file__).resolve().parents[2]
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -44,8 +46,10 @@ def test_benchmark_json_keeps_to_its_contract():
         assert m["moves"] in e2e and set(m["workloads"]) <= cells
         assert re.match(r"^[A-Za-z0-9_/%.-]{1,16}$", m["unit"])
     for c in spec["workloads"]:
-        assert c["chips"] == 1 and len(c["why"]) <= 200
+        assert c["chips"] in (1, 4) and len(c["why"]) <= 200
         assert (ROOT / "hpcbench" / "traffic" / f"{c['traffic']}.json").is_file()
+    four = sum(c["chips"] == 4 for c in spec["workloads"])
+    assert four <= max(1, len(spec["workloads"]) // 4)
     for c in spec["configs"]:
         assert c["file"].startswith("hpcbench/") and len(c["source"]) <= 200
 
@@ -77,6 +81,25 @@ def test_a_cell_and_a_metric_added_as_files(bench, tmp_path):
     assert out["correct"], out["checks"]
     assert out["metrics"]["window.solves"]["value"] == out["attempted"] > 0
     assert set(out["metrics"]) == {"gnnz_per_s", "solve_ms_p95", "setup_s", "window.solves"}
+
+
+def test_a_four_chip_cell_added_as_files(bench):
+    """A cell of four chips, added as files and entries only, runs through
+    ``run_cell`` on a four-rank CPU mesh: its builder is told four devices,
+    solves the z-stacked problem on them, and the comparison holds its x,
+    unsharded, to the plain reference on the global grid."""
+    bench, cell = mesh_cell(bench, 4)
+    told = []
+
+    def setup(config, problem, devices, spans):
+        told.append(devices)
+        return mesh_system()(config, problem, devices, spans)
+
+    out = run_cell(bench, cell, 2**31 + 7, 0.2, False, device="cpu", system=setup)
+    assert out["correct"] and out["attempted"] > 0, out["checks"]
+    assert [tuple(map(str, t)) for t in told] == [("cpu",) * 4]
+    assert set(out["metrics"]) == {"gnnz_per_s", "solve_ms_p95", "setup_s"}
+    assert out["device"]["platform"] == "cpu" and out["device"]["memory_peak_bytes_per_card"] == []
 
 
 def test_unknown_names_raise(bench):
