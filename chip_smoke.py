@@ -34,7 +34,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    z chunk) at 1, 2, 4 and 8 ranks and on b/x0 shards that are views at odd
    element offsets, each line with the grid and the access widths the
    launches ran at (phase_collective_kernels; bfloat16 in
-   phase_collective_bf16_kernels); then K17 (cg, cg1) against its plain
+   phase_collective_bf16_kernels); then, on a machine of two or more
+   cards, K15/K16 across every card on their main path, one 64^3 rank a
+   card, against the plain version and the one-card launch
+   (phase_collective_across_cards); then K17 (cg, cg1) against its plain
    version with 1, 2, 4, 6 and 8 ranks on the card, float32 and float64,
    on symmetric bands: scattered within +-200 at 2048 and 100000 rows per
    rank, the diagonal alone, a band as wide as the shard, then at the edges
@@ -1973,6 +1976,75 @@ def phase_collective_kernels() -> dict:
     return stats
 
 
+def phase_collective_across_cards() -> None:
+    """K15 (cg, cg1) and K16 (pipecg) across cards on their main path:
+    make_distributed_cg(backend="collective") over make_mesh(devices=
+    cuda:0 ... cuda:N-1), every card of the machine (two or more), one rank
+    a card at 64^3 a rank (the weak-scaling cell's shape), float64 and
+    float32, COLL_ITERS iterations: held to the plain version as
+    _coll_case holds it (niters, the trace above its floor, x), to the same
+    ranks launched together on cuda:0 (niters equal, the trace and x within
+    1e-12 relative), and counted as one launch of the wrapper per card, the
+    count set to 0 just before. Then the cell's own solve (float64 cg, 150
+    iterations) against the plain version (niters 149, the trace within
+    1e-9 relative, x within 1e-10) and the one-card launch (1e-12). On a
+    one-card machine it says so and stops."""
+    from hpccg_tpu_torch import ProblemConfig
+    from hpccg_tpu_torch.ops.cuda import collective as col
+    from hpccg_tpu_torch.parallel import generate_problem_sharded, make_distributed_cg, make_mesh
+    from hpccg_tpu_torch.parallel.cg import local_operator
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        say(f"[collective] across cards: not run, this machine has {cards} card")
+        return
+    devices = [torch.device("cuda", i) for i in range(cards)]
+    mesh = make_mesh(devices=devices)
+
+    def rel(a, b) -> float:
+        return float(((a - b).abs() / b.abs().clamp_min(torch.finfo(b.dtype).tiny)).max())
+
+    def held(cfg, method, iters, limits, what):
+        op = local_operator(cfg)
+        one = generate_problem_sharded(cfg, _one_card(cards))
+        b = tuple(v.to(d) for v, d in zip(one.b, devices))
+        x0 = tuple(v.to(d) for v, d in zip(one.x0, devices))
+        kw = dict(max_iter=iters, tolerance=0.0, backend="collective", method=method)
+        plain = col.solve_plain(op, one.b, one.x0, method=method, max_iter=iters)
+        want = make_distributed_cg(cfg, _one_card(cards), **kw)(one.b, one.x0)
+        wrapper = col.cg_collective_pipelined if method == "pipecg" else col.cg_collective
+        wrapper.launches = 0
+        got = make_distributed_cg(cfg, mesh, **kw)(b, x0)
+        for d in devices:
+            torch.cuda.synchronize(d)
+        if wrapper.launches != cards:
+            raise AssertionError(f"{what}: {wrapper.launches} launches, expected one per card ({cards})")
+        n = int(got.niters)
+        if not n == int(want.niters) == int(plain.niters) == iters - 1:
+            raise AssertionError(f"{what}: niters {n}, one card {int(want.niters)}, plain {int(plain.niters)}")
+        tr, one_tr = got.trace[:n + 1].double().cpu(), want.trace[:n + 1].double().cpu()
+        gx = torch.cat([x.to(devices[0]) for x in got.x]).double()
+        wx, px = torch.cat(want.x).double(), torch.cat(plain.x).double()
+        one_card = max(rel(tr, one_tr), rel(gx, wx))
+        if not one_card <= 1e-12:
+            raise AssertionError(f"{what}: {one_card:.3e} from the one-card launch")
+        rtol, floor, xrtol = limits
+        worst = _head_rel(tr, plain.trace[:n + 1].double().cpu(), rtol, floor, what)
+        xerr = float((gx - px).abs().max())
+        if not xerr <= xrtol * float(px.abs().max()):
+            raise AssertionError(f"{what}: max|x - x_plain| = {xerr:.3e}")
+        say(f"[collective] {what}: ok; niters {n}, launches {wrapper.launches}; one card {one_card:.1e}; plain: "
+            f"trace {worst:.1e}, x {xerr:.1e}")
+
+    for dtype in (torch.float64, torch.float32):
+        cfg = ProblemConfig(64, 64, 64, dtype=dtype)
+        for method in ("cg", "cg1", "pipecg"):
+            held(cfg, method, COLL_ITERS, _coll_limits(method, dtype),
+                 f"{METHOD_KERNEL[method].split()[0]} {method} {cards} cards x 64^3 {str(dtype)[6:]}")
+    held(ProblemConfig(64, 64, 64, dtype=torch.float64), "cg", 150, (1e-9, 0.0, 1e-10),
+         f"K15 cg {cards} cards x 64^3 float64, 150 iterations")
+
+
 # the slice's main path: (label, ranks, per-rank block); the reference's
 # headline unit, its weak-scaling protocol (64^3 per rank, BASELINE.md:19)
 # and its strong-scaling protocol (64x64x1024 global on 8 ranks, :20)
@@ -3778,6 +3850,7 @@ def main() -> int:
     _phase("large offsets", phase_large_offsets)
     stats.update(_phase("sparse kernels vs plain", phase_sparse_kernels, card))
     stats.update(_phase("collective kernels vs plain", phase_collective_kernels))
+    _phase("collective kernels across cards", phase_collective_across_cards)
     stats.update(_phase("collective DIA kernel vs plain", phase_collective_dia_kernels))
     stats.update(_phase("bf16 K1-K4 vs plain", phase_bf16_kernels))
     stats.update(_phase("bandwidth probes vs plain", phase_probes, card))

@@ -21,7 +21,8 @@ inner solves; single device) and ``--mesh N``: the z-stacked problem of N
 blocks of nx*ny*nz on a single-controller mesh (``parallel``), N ranks on
 the CPU with ``--device cpu``, one per card on CUDA (``--mesh N`` needs N
 cards, as the JAX package needs N chips), with the distributed backends and
-``--backend collective`` (the whole solve in one launch of K15/K16).
+``--backend collective`` (the whole solve in one launch of K15/K16 per
+card).
 
 File mode at ``--mesh N`` (distributed file mode) pads the rows to a
 multiple of N (identity rows, ``io.pad_problem_rows``), block-shards them
@@ -38,9 +39,11 @@ tier needs a gather matrix that its chooser never builds for 2-byte values
 (the port's ``ell-halo`` takes bf16 through the API). ``--check`` strips
 the pad rows and undoes RCM first; the report names the tier and the mesh
 size. On CUDA
-``--mesh N`` takes one card per rank, and K17 runs every rank on one card,
-so across cards ``collective`` falls back to dia-halo (the API drives K17
-on a one-card mesh: ``parallel.make_collective_dia_cg``).
+``--mesh N`` takes one card per rank: in stencil mode ``--backend
+collective`` runs K15/K16 across the N cards (one launch per card), while
+K17 runs every rank on one card, so in file mode across cards
+``collective`` falls back to dia-halo (the API drives K17 on a one-card
+mesh: ``parallel.make_collective_dia_cg``).
 
 Total is timed with CUDA events around a warm solve (the host clock on the
 CPU). SPARSEMV is slope-timed on K1 (in bfloat16 on its bf16 instance), in
@@ -228,9 +231,6 @@ def _distributed(args, cfg, ndev: int, device):
         print(f"# --backend {backend} is not a distributed solver backend; using auto", file=sys.stderr)
         backend = "auto"
     backend = warn_cg_only(resolve_distributed_backend(cfg, backend, device), args.method)
-    if backend == "collective" and not mesh.one_device:
-        raise ValueError(f"--backend collective runs every rank on one card; --mesh {ndev} spans {ndev} cards "
-                         "(the multi-card launch is queued in ROADMAP)")
     solve = make_distributed_cg(cfg, mesh, max_iter=args.max_iter, tolerance=args.tolerance, backend=backend,
                                 method=args.method, replace_every=args.rr_every)
     return solve, prob, mesh, f"distributed:{backend}"

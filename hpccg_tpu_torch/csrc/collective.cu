@@ -64,11 +64,19 @@
 //     partials have arrived and the table round is skipped: the same bits,
 //     one hop less.
 //   - The protocol's hops are its cost at these sizes, so each is paid once:
-//     every rank of a launch shares this card, so the counters' atomics and
-//     fences take device scope, not the system's (as K17's do; a
-//     multi-card launch would take the system's); a rank's row goes to its peers
-//     behind one fence; pipecg double-buffers w, so that its exchange is
-//     the allreduce's start and no barrier follows its apply.
+//     when every rank shares this card the counters' atomics and fences
+//     take device scope, not the system's (as K17's do); a rank's row goes
+//     to its peers behind one fence; pipecg double-buffers w, so that its
+//     exchange is the allreduce's start and no barrier follows its apply.
+//   - Across cards (the PEER instances: one launch per card of that card's
+//     ranks) the same code runs at system scope. A boundary plane's push
+//     and a rank's table rows are stores into the peer card's memory over
+//     NVLink, the counters' increments atomics there; every wait spins on
+//     the reader's own memory, and no staged copy reads another card's:
+//     each rank first pushes x0's boundary planes to its neighbours
+//     (share_x0). The host zeroes every card's counters before any card's
+//     launch may start (ops/cuda/collective.py), since a fast card signals
+//     into a slow card's counters.
 //   - Everything other blocks or ranks wrote in the launch is read through
 //     L2 (cp.async.cg, __ldcg), never through a possibly stale L1 line.
 //
@@ -119,9 +127,9 @@ constexpr bool ONE_RANK = HPCCG_COLL_ONE_RANK != 0;
 constexpr bool SYNC_ONLY = HPCCG_COLL_SYNC_ONLY != 0;
 constexpr int COLL_SMEM = ring_bytes(1);  // the ring: one staged input
 static_assert(COLL_ZC >= 1 && HPCCG_COLL_BLOCKS >= 1 && HPCCG_COLL_BLOCKS_PIPE >= 1, "collective constants");
-// every rank of a launch shares this card: the protocol's atomics and
-// fences at device scope (a multi-card launch would take the system's)
-constexpr cuda::thread_scope SCOPE = cuda::thread_scope_device;
+// every rank on this card: the protocol's atomics and fences at device
+// scope; ranks on peer cards: at the system's
+constexpr cuda::thread_scope SCOPE = cuda::thread_scope_device, PEER = cuda::thread_scope_system;
 
 // Resident blocks per SM, at most (the kernel's launch bound): pipecg,
 // whose passes carry seven vectors, gets more registers.
@@ -138,6 +146,8 @@ struct Params {
   int access;        // bytes per access of the state vectors and the landing planes
   int init_access;   // the same, of b and x0 too
   long long pitch;   // elements from one landing plane to the next
+  int rank0;         // the first rank of this launch (across cards; else 0)
+  unsigned long long* timers;  // across cards with tracing on: 2 per launched rank; else null
 };
 
 // A thread's V points of one output row: the offset of the first, how many
@@ -205,9 +215,9 @@ __device__ __forceinline__ void store_vec(T* p, const Row& at, const T (&v)[Geo<
 // One block's view of its rank of the z-stacked stencil problem: the
 // rank's vectors and landing planes in T, the arithmetic in S; the dots'
 // partials in double.
-template <typename T, typename S, int STENCIL>
-struct Slab : Comm<T, S, NT, SCOPE> {
-  using Base = Comm<T, S, NT, SCOPE>;
+template <typename T, typename S, int STENCIL, cuda::thread_scope Scope>
+struct Slab : Comm<T, S, NT, Scope> {
+  using Base = Comm<T, S, NT, Scope>;
   static constexpr int V = Geo<T>::V, TX = Geo<T>::TX;
   T* ring;
   double (*wred)[TY][COLL_ZC];  // [dot][warp][plane of the item]
@@ -219,7 +229,7 @@ struct Slab : Comm<T, S, NT, SCOPE> {
   bool local;  // the last allreduce skipped the table round
 
   __device__ Slab(const Params<S>& p, T* ring_, double (*wred_)[TY][COLL_ZC], S* sums_)
-      : Base(p.c, sums_, threadIdx.x, (int64_t)p.nx * p.ny * p.nz),
+      : Base(p.c, sums_, threadIdx.x, (int64_t)p.nx * p.ny * p.nz, p.rank0, p.timers),
         ring(ring_),
         wred(wred_),
         sums(sums_),
@@ -252,8 +262,11 @@ struct Slab : Comm<T, S, NT, SCOPE> {
             this->rank < this->ndev - 1 ? landing(this->rank, ph, 1) : nullptr};
   }
 
-  // x0 with the peers' x0 planes next to it.
+  // x0 with the peers' x0 planes next to it: on one card read from the
+  // peers' x0 through the pointer table; across cards from the landing
+  // planes of phase 0, where share_x0 put them.
   __device__ Planes<T> x0_halo() const {
+    if constexpr (Scope == PEER) return halo(input(P_X0), 0);
     const int r = this->rank;
     return {input(P_X0), r > 0 ? this->template ptr<T>(P_X0, r - 1) + (nz - 1) * plane : nullptr,
             r < this->ndev - 1 ? this->template ptr<T>(P_X0, r + 1) : nullptr};
@@ -360,7 +373,7 @@ struct Slab : Comm<T, S, NT, SCOPE> {
 
   // Thread 0 adds one to a counter, after the fence that publishes what
   // it signals (Comm::publish, or its own): a release.
-  __device__ static void signal(unsigned* c) { ScopedAtomic<SCOPE>(*c).fetch_add(1u, cuda::memory_order_relaxed); }
+  __device__ static void signal(unsigned* c) { ScopedAtomic<Scope>(*c).fetch_add(1u, cuda::memory_order_relaxed); }
 
   // The first half of an allreduce of the NDOT dots whose partials this
   // round's items left: Comm::allreduce_start's protocol, but the rank's
@@ -400,7 +413,7 @@ struct Slab : Comm<T, S, NT, SCOPE> {
           row[0] = own[0];
           row[1] = own[1];
         }
-        __threadfence();
+        scope_fence<Scope>();
         for (int peer = 0; peer < ndev; ++peer) signal(this->ctr(peer) + C_TABLE + slot);
       }
     }
@@ -437,11 +450,37 @@ __device__ __forceinline__ T axpy(S x, S a, T v) {
   return from_s<T>(add_rn(x, mul_rn(a, to_s(v))));
 }
 
+// Across cards (PEER) every driver starts here: each rank pushes x0's
+// boundary planes into its neighbours' landing planes of phase 0 (which no
+// loop uses) and exchanges them, so that init stages its halo from its own
+// card's memory (x0_halo) and no staged copy reads another card's. On one
+// card it does nothing.
+template <typename T, typename S, int STENCIL, cuda::thread_scope Scope>
+__device__ bool share_x0(Slab<T, S, STENCIL, Scope>& R) {
+  if constexpr (Scope != PEER) {
+    return true;
+  } else {
+    constexpr int V = Geo<T>::V;
+    const T* x0 = R.input(P_X0);
+    R.template for_items<0>([&](int bx0, int by0, int z0, int z1) {
+      for (int z = z0; z < z1; ++z) {
+        if (z != 0 && z != R.nz - 1) continue;
+        const Row in = R.pts(bx0, by0, z, R.ext0.access);
+        if (in.count <= 0) continue;
+        alignas(16) T v[V];
+        load_vec<T>(x0, in, v);
+        R.push(0, z, R.pts(bx0, by0, z, R.ext.access), v);
+      }
+    });
+    return R.exchange(0);
+  }
+}
+
 // The init of every driver: x = x0 (and pcopy = x0), r = b - A x0 and
 // NDOT = 1: r.r, on the march of x0; on_row(z, at, xt, rt) takes each row
 // of x0 and r inside the grid (to push them).
-template <typename T, typename S, int STENCIL, int NDOT, typename OnRow>
-__device__ void init_r(Slab<T, S, STENCIL>& R, T* pcopy, OnRow&& on_row) {
+template <typename T, typename S, int STENCIL, int NDOT, cuda::thread_scope Scope, typename OnRow>
+__device__ void init_r(Slab<T, S, STENCIL, Scope>& R, T* pcopy, OnRow&& on_row) {
   constexpr int V = Geo<T>::V;
   const T* b = R.input(P_B);
   T *X = R.vec(P_X), *Rv = R.vec(P_R);
@@ -476,8 +515,8 @@ __device__ void init_r(Slab<T, S, STENCIL>& R, T* pcopy, OnRow&& on_row) {
 // A v over the rank's slab (v with phase ph's landing planes as its halo):
 // emit(z, at, c, y) for each row of the tiles inside the grid, c = v and y
 // = (A v) there in S, before the plane's partials.
-template <typename T, typename S, int STENCIL, int NDOT, typename Emit>
-__device__ void apply(Slab<T, S, STENCIL>& R, const T* v, int ph, Emit&& emit) {
+template <typename T, typename S, int STENCIL, int NDOT, cuda::thread_scope Scope, typename Emit>
+__device__ void apply(Slab<T, S, STENCIL, Scope>& R, const T* v, int ph, Emit&& emit) {
   constexpr int V = Geo<T>::V;
   const Planes<T> none{nullptr, nullptr, nullptr};
   R.template for_items<NDOT>([&](int bx0, int by0, int z0, int z1) {
@@ -494,8 +533,8 @@ __device__ void apply(Slab<T, S, STENCIL>& R, const T* v, int ph, Emit&& emit) {
 
 // An elementwise pass on the rows of the rank's items: row(z, at, d0, d1)
 // for each row inside the grid, plane by plane.
-template <typename T, typename S, int STENCIL, int NDOT, typename Body>
-__device__ void pass(Slab<T, S, STENCIL>& R, Body&& row) {
+template <typename T, typename S, int STENCIL, int NDOT, cuda::thread_scope Scope, typename Body>
+__device__ void pass(Slab<T, S, STENCIL, Scope>& R, Body&& row) {
   R.template for_items<NDOT>([&](int bx0, int by0, int z0, int z1) {
     for (int z = z0; z < z1; ++z) {
       const Row at = R.pts(bx0, by0, z, R.ext.access);
@@ -510,11 +549,12 @@ __device__ void pass(Slab<T, S, STENCIL>& R, Body&& row) {
 // K15, cg (_cg_whole_solve): the reference recurrence, K5's exit test (the
 // normr of the previous body's top). Vectors: x, r, p, and Ap in P_S; p's
 // boundary planes go to landing phase 1.
-template <typename T, typename S, int STENCIL>
-__device__ void slab_cg(Slab<T, S, STENCIL>& R) {
+template <typename T, typename S, int STENCIL, cuda::thread_scope Scope>
+__device__ void slab_cg(Slab<T, S, STENCIL, Scope>& R) {
   constexpr int V = Geo<T>::V;
   T *X = R.vec(P_X), *Rv = R.vec(P_R), *Pv = R.vec(P_P), *AP = R.vec(P_S);
   // init: x = p = x0, r = b - A x0, r.r
+  HPCCG_TRY(share_x0(R));
   init_r<T, S, STENCIL, 1>(R, Pv, [](int, const Row&, const T(&)[V], const T(&)[V]) {});
   S rtrans, unused;
   HPCCG_TRY(R.template reduce<1>(1, rtrans, unused));
@@ -582,10 +622,11 @@ __device__ void slab_cg(Slab<T, S, STENCIL>& R) {
 
 // K15, cg1 (_cg1_whole_solve): Chronopoulos-Gear, exchanging r in every
 // iteration (phase 1); P_S = A p by recurrence, P_U = A r.
-template <typename T, typename S, int STENCIL>
-__device__ void slab_cg1(Slab<T, S, STENCIL>& R) {
+template <typename T, typename S, int STENCIL, cuda::thread_scope Scope>
+__device__ void slab_cg1(Slab<T, S, STENCIL, Scope>& R) {
   constexpr int V = Geo<T>::V;
   T *X = R.vec(P_X), *Rv = R.vec(P_R), *Pv = R.vec(P_P), *Sv = R.vec(P_S), *U = R.vec(P_U);
+  HPCCG_TRY(share_x0(R));
   init_r<T, S, STENCIL, 0>(R, nullptr,
                            [&](int z, const Row& at, const T(&)[V], const T(&rt)[V]) { R.push(1, z, at, rt); });
   HPCCG_TRY(R.exchange(1));
@@ -663,12 +704,13 @@ __device__ void slab_cg1(Slab<T, S, STENCIL>& R) {
 // apply, so the pass's exchange is the allreduce's start (reduce_start with
 // a phase) and no barrier follows the apply. Landing phases: 1 for r and 2
 // for w at the init, 3/4 by iteration parity for w in the loop.
-template <typename T, typename S, int STENCIL>
-__device__ void slab_pipecg(Slab<T, S, STENCIL>& R) {
+template <typename T, typename S, int STENCIL, cuda::thread_scope Scope>
+__device__ void slab_pipecg(Slab<T, S, STENCIL, Scope>& R) {
   constexpr int V = Geo<T>::V;
   T *X = R.vec(P_X), *Rv = R.vec(P_R), *Pv = R.vec(P_P), *Sv = R.vec(P_S);
   T *Z = R.vec(P_Z), *Q = R.vec(P_Q);
   T* W[2] = {R.vec(P_U), R.vec(P_V)};
+  HPCCG_TRY(share_x0(R));
   init_r<T, S, STENCIL, 0>(R, nullptr,
                            [&](int z, const Row& at, const T(&)[V], const T(&rt)[V]) { R.push(1, z, at, rt); });
   HPCCG_TRY(R.exchange(1));
@@ -762,12 +804,12 @@ __device__ void slab_pipecg(Slab<T, S, STENCIL>& R) {
   R.finish(sqrt(gamma_top), gamma_top, k);
 }
 
-template <typename T, typename S, int STENCIL, int METHOD>
+template <typename T, typename S, int STENCIL, int METHOD, cuda::thread_scope Scope>
 __global__ void __launch_bounds__(NT, coll_blocks<METHOD>()) collective_kernel(const __grid_constant__ Params<S> P) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ double wred[2][TY][COLL_ZC];
   __shared__ S sums[NT];
-  Slab<T, S, STENCIL> R(P, reinterpret_cast<T*>(smem_raw), wred, sums);
+  Slab<T, S, STENCIL, Scope> R(P, reinterpret_cast<T*>(smem_raw), wred, sums);
   if (METHOD == CG) {
     slab_cg(R);
   } else if (METHOD == CG1) {
@@ -777,16 +819,22 @@ __global__ void __launch_bounds__(NT, coll_blocks<METHOD>()) collective_kernel(c
   }
 }
 
-template <typename T, typename S, int STENCIL>
-const void* kernel_for_stencil(int method) {
-  if (method == CG) return (const void*)collective_kernel<T, S, STENCIL, CG>;
-  if (method == CG1) return (const void*)collective_kernel<T, S, STENCIL, CG1>;
-  return (const void*)collective_kernel<T, S, STENCIL, PIPECG>;
+template <typename T, typename S, int STENCIL, cuda::thread_scope Scope>
+const void* kernel_for_scope(int method) {
+  if (method == CG) return (const void*)collective_kernel<T, S, STENCIL, CG, Scope>;
+  if (method == CG1) return (const void*)collective_kernel<T, S, STENCIL, CG1, Scope>;
+  return (const void*)collective_kernel<T, S, STENCIL, PIPECG, Scope>;
 }
 
+template <typename T, typename S, int STENCIL>
+const void* kernel_for_stencil(int method, bool peer) {
+  return peer ? kernel_for_scope<T, S, STENCIL, PEER>(method) : kernel_for_scope<T, S, STENCIL, SCOPE>(method);
+}
+
+// The instance for a stencil and method; peer: the ranks span cards.
 template <typename T, typename S>
-const void* kernel_for(int stencil, int method) {
-  return stencil == 27 ? kernel_for_stencil<T, S, 27>(method) : kernel_for_stencil<T, S, 7>(method);
+const void* kernel_for(int stencil, int method, bool peer) {
+  return stencil == 27 ? kernel_for_stencil<T, S, 27>(method, peer) : kernel_for_stencil<T, S, 7>(method, peer);
 }
 
 // The cooperative grid of a launch: the z chunk, each rank's work items and
@@ -797,19 +845,19 @@ struct Geometry {
   int bpr;
 };
 
-// The geometry of ndev ranks of nx*ny*nz on the current device: every
-// block resident at once (min(occupancy, coll_blocks()) on each SM,
-// shared by the ranks), a rank's blocks capped by its work items; of the z
-// chunks COLL_ZC, COLL_ZC/2, ..., 1 the one whose busiest block stages the
-// fewest planes (ceil(items / bpr) items of zc + 2 planes), the larger on a
-// tie (K5's rule). Returns a CUDA error code.
+// The geometry of ndev ranks of nx*ny*nz launched together on the current
+// device: every block resident at once (min(occupancy, coll_blocks()) on
+// each SM, shared by the ranks), a rank's blocks capped by its work items;
+// of the z chunks COLL_ZC, COLL_ZC/2, ..., 1 the one whose busiest block
+// stages the fewest planes (ceil(items / bpr) items of zc + 2 planes), the
+// larger on a tie (K5's rule). Returns a CUDA error code.
 template <typename T, typename S>
-int geometry(int nx, int ny, int nz, int stencil, int method, int ndev, Geometry* g) {
+int geometry(int nx, int ny, int nz, int stencil, int method, int ndev, bool peer, Geometry* g) {
   if ((stencil != 27 && stencil != 7) || method < CG || method > PIPECG || nx < 1 || ny < 1 || nz < 1 ||
       ndev < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  const void* kern = kernel_for<T, S>(stencil, method);
+  const void* kern = kernel_for<T, S>(stencil, method, peer);
   int dev = 0, sms = 0, coop_ok = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -841,12 +889,17 @@ int geometry(int nx, int ny, int nz, int stencil, int method, int ndev, Geometry
 
 bool valid_access(int a, int esize) { return (a == 2 || a == 4 || a == 8 || a == 16) && a >= esize; }
 
+// One launch of the ranks [rank0, rank0 + ranks) of a mesh of ndev on the
+// current device; peer: the mesh spans cards (system scope). words: the
+// card's error word (4 ints), then with timed its timers (2 x 8 bytes a
+// rank).
 template <typename T, typename S>
-int launch(const long long* ptrs, S* trace, S* stats, int* err, int ndev, int nx, int ny, int nz, long long pitch,
-           int access, int init_access, long long nparts, int stencil, int method, int max_iter, double tol,
-           long long wait_ns, void* stream) {
+int launch(const long long* ptrs, S* trace, S* stats, int* words, int timed, int rank0, int ranks, int ndev, int nx,
+           int ny, int nz, long long pitch, int access, int init_access, long long nparts, int stencil, int method,
+           int max_iter, double tol, long long wait_ns, int peer, void* stream) {
+  if (rank0 < 0 || ranks < 1 || rank0 + ranks > ndev || (ranks < ndev && !peer)) return (int)cudaErrorInvalidValue;
   Geometry g;
-  const int e = geometry<T, S>(nx, ny, nz, stencil, method, ndev, &g);
+  const int e = geometry<T, S>(nx, ny, nz, stencil, method, ranks, peer != 0, &g);
   if (e != (int)cudaSuccess) return e;
   const int esize = (int)sizeof(T);
   const long long tiles = (long long)ceil_div(nx, Geo<T>::TX) * ceil_div(ny, TY);
@@ -854,23 +907,26 @@ int launch(const long long* ptrs, S* trace, S* stats, int* err, int ndev, int nx
     return (int)cudaErrorInvalidValue;
   }
   if (!valid_access(access, esize) || !valid_access(init_access, esize)) return (int)cudaErrorMisalignedAddress;
-  Params<S> params{{ptrs, trace, stats, err, ndev, g.bpr, max_iter, S(tol), (unsigned long long)wait_ns},
+  unsigned long long* timers = timed ? reinterpret_cast<unsigned long long*>(words + 4) : nullptr;
+  Params<S> params{{ptrs, trace, stats, words, ndev, g.bpr, max_iter, S(tol), (unsigned long long)wait_ns},
                    nx,
                    ny,
                    nz,
                    g.zc,
                    access,
                    init_access,
-                   pitch};
+                   pitch,
+                   rank0,
+                   timers};
   void* args[] = {&params};
-  return (int)cudaLaunchCooperativeKernel(kernel_for<T, S>(stencil, method), dim3(ndev * g.bpr), dim3(NT), args,
-                                          COLL_SMEM, (cudaStream_t)stream);
+  return (int)cudaLaunchCooperativeKernel(kernel_for<T, S>(stencil, method, peer != 0), dim3(ranks * g.bpr),
+                                          dim3(NT), args, COLL_SMEM, (cudaStream_t)stream);
 }
 
 template <typename T, typename S>
-int geometry_out(int nx, int ny, int nz, int stencil, int method, int ndev, int* out) {
+int geometry_out(int nx, int ny, int nz, int stencil, int method, int ndev, int peer, int* out) {
   Geometry g;
-  const int err = geometry<T, S>(nx, ny, nz, stencil, method, ndev, &g);
+  const int err = geometry<T, S>(nx, ny, nz, stencil, method, ndev, peer != 0, &g);
   if (err != (int)cudaSuccess) return err;
   out[0] = Geo<T>::TX;
   out[1] = TY;
@@ -885,46 +941,84 @@ int geometry_out(int nx, int ny, int nz, int stencil, int method, int ndev, int*
 extern "C" {
 
 // The cooperative grid of a launch of ndev ranks of nx*ny*nz on the current
-// device: out = {tile width, tile height, z-planes per work item, work
-// items of a rank, blocks of a rank}. dtype: 0 float32, 1 float64, 2
-// bfloat16; method: 0 cg, 1 cg1, 2 pipecg. Returns a CUDA error code.
-int hpccg_collective_geometry(int nx, int ny, int nz, int dtype, int stencil, int method, int ndev, int* out) {
-  if (dtype == 0) return geometry_out<float, float>(nx, ny, nz, stencil, method, ndev, out);
-  if (dtype == 1) return geometry_out<double, double>(nx, ny, nz, stencil, method, ndev, out);
-  if (dtype == 2) return geometry_out<__nv_bfloat16, float>(nx, ny, nz, stencil, method, ndev, out);
+// device (peer: the system-scope instance, whose ranks span cards): out =
+// {tile width, tile height, z-planes per work item, work items of a rank,
+// blocks of a rank}. dtype: 0 float32, 1 float64, 2 bfloat16; method: 0 cg,
+// 1 cg1, 2 pipecg. Returns a CUDA error code.
+int hpccg_collective_geometry(int nx, int ny, int nz, int dtype, int stencil, int method, int ndev, int peer,
+                              int* out) {
+  if (dtype == 0) return geometry_out<float, float>(nx, ny, nz, stencil, method, ndev, peer, out);
+  if (dtype == 1) return geometry_out<double, double>(nx, ny, nz, stencil, method, ndev, peer, out);
+  if (dtype == 2) return geometry_out<__nv_bfloat16, float>(nx, ny, nz, stencil, method, ndev, peer, out);
   return (int)cudaErrorInvalidValue;
+}
+
+// Peer access from device dev to device peer's memory, with native atomics:
+// enabled once (enabling it again is no error); the current device is left
+// as it was. Returns 0, -1 where dev cannot reach peer's memory, -2 where
+// the link has no native atomics, else a CUDA error code.
+int hpccg_peer_enable(int dev, int peer) {
+  int can = 0, atomics = 0, prev = 0;
+  cudaError_t err = cudaDeviceCanAccessPeer(&can, dev, peer);
+  if (err == cudaSuccess && !can) return -1;
+  if (err == cudaSuccess) err = cudaDeviceGetP2PAttribute(&atomics, cudaDevP2PAttrNativeAtomicSupported, dev, peer);
+  if (err == cudaSuccess && !atomics) return -2;
+  if (err == cudaSuccess) err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaSetDevice(dev);
+  if (err == cudaSuccess) err = cudaDeviceEnablePeerAccess(peer, 0);
+  if (err == cudaErrorPeerAccessAlreadyEnabled) {
+    (void)cudaGetLastError();
+    err = cudaSuccess;
+  }
+  const cudaError_t back = cudaSetDevice(prev);
+  return (int)(err != cudaSuccess ? err : back);
+}
+
+// bytes of zeros at p, in stream order (a memset, no kernel).
+int hpccg_zero(void* p, long long bytes, void* stream) {
+  return (int)cudaMemsetAsync(p, 0, (size_t)bytes, (cudaStream_t)stream);
 }
 
 // The number of counter words per rank and of pointer-table rows.
 int hpccg_collective_layout(int which) { return which == 0 ? NCTR : NKIND; }
 
-// ptrs: the NKIND x ndev pointer table (collective.cuh); P_PARTS rows point
-// at nparts doubles per rank (4 tiles nz: two rounds of two dots), P_H rows
-// at (5 phases, 2 sides) landing planes `pitch` elements apart (a multiple
-// of 16 bytes). access / init_access: the widest of 16, 8, 4, 2 bytes that
+// One launch of the ranks [rank0, rank0 + ranks) of a mesh of ndev ranks on
+// the current device (every rank, or across cards, peer = 1, the card's
+// own). ptrs: the NKIND x ndev pointer table (collective.cuh), on this
+// card, naming every rank's buffers (another card's at its peer address);
+// P_PARTS rows point at nparts doubles per rank (4 tiles nz: two rounds of
+// two dots), P_H rows at (5 phases, 2 sides) landing planes `pitch`
+// elements apart (a multiple of 16 bytes). words: the card's error word (4
+// ints, zero), then, with timed, (ns waited on peers, ns of the kernel) of
+// each launched rank as 8-byte words. trace and stats are written by rank
+// 0's launch. access / init_access: the widest of 16, 8, 4, 2 bytes that
 // divides nx * sizeof(T), the state vectors' and landing planes' pointers
 // (and b's and x0's).
-int hpccg_collective_f32(const long long* ptrs, float* trace, float* stats, int* err, int ndev, int nx, int ny,
-                         int nz, long long pitch, int access, int init_access, long long nparts, int stencil,
-                         int method, int max_iter, double tol, long long wait_ns, void* stream) {
-  return launch<float, float>(ptrs, trace, stats, err, ndev, nx, ny, nz, pitch, access, init_access, nparts,
-                              stencil, method, max_iter, tol, wait_ns, stream);
+int hpccg_collective_f32(const long long* ptrs, float* trace, float* stats, int* words, int timed, int rank0,
+                         int ranks, int ndev, int nx, int ny, int nz, long long pitch, int access, int init_access,
+                         long long nparts, int stencil, int method, int max_iter, double tol, long long wait_ns,
+                         int peer, void* stream) {
+  return launch<float, float>(ptrs, trace, stats, words, timed, rank0, ranks, ndev, nx, ny, nz, pitch, access,
+                          init_access, nparts, stencil, method, max_iter, tol, wait_ns, peer, stream);
 }
 
-int hpccg_collective_f64(const long long* ptrs, double* trace, double* stats, int* err, int ndev, int nx, int ny,
-                         int nz, long long pitch, int access, int init_access, long long nparts, int stencil,
-                         int method, int max_iter, double tol, long long wait_ns, void* stream) {
-  return launch<double, double>(ptrs, trace, stats, err, ndev, nx, ny, nz, pitch, access, init_access, nparts,
-                                stencil, method, max_iter, tol, wait_ns, stream);
+int hpccg_collective_f64(const long long* ptrs, double* trace, double* stats, int* words, int timed, int rank0,
+                         int ranks, int ndev, int nx, int ny, int nz, long long pitch, int access, int init_access,
+                         long long nparts, int stencil, int method, int max_iter, double tol, long long wait_ns,
+                         int peer, void* stream) {
+  return launch<double, double>(ptrs, trace, stats, words, timed, rank0, ranks, ndev, nx, ny, nz, pitch, access,
+                          init_access, nparts, stencil, method, max_iter, tol, wait_ns, peer, stream);
 }
 
 // bfloat16 vectors (the b, x0 and state rows of ptrs, the landing planes);
 // the allreduce table, the trace and the stats are float32.
-int hpccg_collective_bf16(const long long* ptrs, float* trace, float* stats, int* err, int ndev, int nx, int ny,
-                          int nz, long long pitch, int access, int init_access, long long nparts, int stencil,
-                          int method, int max_iter, double tol, long long wait_ns, void* stream) {
-  return launch<__nv_bfloat16, float>(ptrs, trace, stats, err, ndev, nx, ny, nz, pitch, access, init_access,
-                                      nparts, stencil, method, max_iter, tol, wait_ns, stream);
+int hpccg_collective_bf16(const long long* ptrs, float* trace, float* stats, int* words, int timed, int rank0,
+                          int ranks, int ndev, int nx, int ny, int nz, long long pitch, int access, int init_access,
+                          long long nparts, int stencil, int method, int max_iter, double tol, long long wait_ns,
+                          int peer, void* stream) {
+  return launch<__nv_bfloat16, float>(ptrs, trace, stats, words, timed, rank0, ranks, ndev, nx, ny, nz, pitch, access,
+                                      init_access, nparts, stencil, method, max_iter, tol, wait_ns, peer, stream);
 }
 
 }  // extern "C"

@@ -5,16 +5,22 @@
 // Slab::reduce_start/reduce_finish, this protocol with the rank's row formed
 // from per-plane partials); K17's cg and cg1 use Comm::allreduce.
 //
-// Ranks. The mesh is single-controller (parallel/mesh.py): every rank of
-// the launch lives on this device. The grid is ndev x bpr blocks, every
-// block resident at once (cooperative launch: occupancy x SMs, else the
-// launch is refused); block b serves rank b / bpr. Ranks meet only through
-// memory that a peer GPU could also write, through per-rank pointer tables:
-// no grid-wide sync, so the ranks are not in lockstep and the exchange
-// protocol below is what orders them. Both kernels take the counters' scope
-// as a template argument and instantiate it at device scope. A multi-card
-// launch would fill the pointer tables with peer (P2P) addresses and take
-// the system's scope; it is not built yet (ROADMAP).
+// Ranks. The mesh is single-controller (parallel/mesh.py): one process
+// drives every rank. A launch runs the ranks [rank0, rank0 + ranks) of one
+// card: every rank of the mesh when they share the card (K15-K17), or, for
+// K15/K16 across cards, the card's own ranks, one cooperative launch per
+// card. The grid is ranks x bpr blocks, every block resident at once
+// (cooperative launch: occupancy x SMs, else the launch is refused); block
+// b serves rank rank0 + b / bpr. Ranks meet only through memory that a
+// peer GPU can also write, through pointer tables that name every rank's
+// buffers: no grid-wide sync, so the ranks are not in lockstep and the
+// exchange protocol below is what orders them. Across cards each card's
+// table holds the other cards' buffers at their peer (P2P, unified)
+// addresses, so a push into a neighbour's landing buffer and a row of a
+// peer's allreduce table are stores over NVLink into the reader's own
+// memory, and the counters are atomics there. The kernels take the
+// counters' scope as a template argument: the device's when every rank
+// shares the card, the system's across cards.
 //
 // Protocol (JAX's phase and parity discipline, collective_kernel.py:22-32):
 //   - rank barrier: a rank's blocks sync through an epoch counter in global
@@ -45,8 +51,14 @@
 //
 // Bounded waits: every spin-wait gives up after wait_ns of %globaltimer,
 // writes an error word (site, rank, expected count), and the block leaves;
-// the other blocks see the word and leave too. The wrappers
-// (ops/cuda/collective.py) raise RuntimeError with it.
+// the other blocks of the card see the word and leave too (a card's error
+// word is its own: the other cards' blocks give up at their own waits). The
+// wrappers (ops/cuda/collective.py) raise RuntimeError with it.
+//
+// Timers (CardPart::timers, null when off; system scope only): block 0 of
+// each launched rank adds up on %globaltimer the time it spins on its peers
+// (halo arrivals and allreduce table slots) and writes it, with the time
+// from its start to its finish, into its rank's pair of the card's timers.
 //
 // A view of a rank (a struct deriving from Comm: K15/K16's Slab, K17's
 // DiaRank) adds what depends on the operator: the pushes of a vector being
@@ -105,8 +117,8 @@ __device__ __forceinline__ unsigned long long globaltimer() {
 }
 
 // The counters' atomics and fences have the scope of the memory the ranks
-// share: the device (every rank of the launch on one card: K15-K17 as
-// built) or the system (peer cards: a multi-card launch).
+// share: the device (every rank on one card) or the system (ranks on peer
+// cards: K15/K16's multi-card launch).
 template <cuda::thread_scope Scope>
 using ScopedAtomic = cuda::atomic_ref<unsigned, Scope>;
 
@@ -129,8 +141,24 @@ __host__ __device__ __forceinline__ int ceil_div(int a, int b) { return (a + b -
 // One block's view of its rank and the protocol; NT threads per block, n
 // real elements per rank; vectors stored in T, computed in S; the counters
 // at memory scope Scope.
+// What a launch of one card's ranks among several cards adds to a rank's
+// view (system scope only): the launch's first rank and its timers, per
+// launched rank (ns waited on peers, ns of the kernel), null when off. At
+// device scope it is empty, so the one-card kernels keep their layout.
+template <cuda::thread_scope Scope>
+struct CardPart {
+  __device__ CardPart(int, unsigned long long*) {}
+};
+
+template <>
+struct CardPart<cuda::thread_scope_system> {
+  int rank0;
+  unsigned long long* timers;
+  __device__ CardPart(int r, unsigned long long* t) : rank0(r), timers(t) {}
+};
+
 template <typename T, typename S, int NT, cuda::thread_scope Scope>
-struct Comm {
+struct Comm : CardPart<Scope> {
   using Store = T;
   using Scalar = S;
   const Common<S> P;
@@ -141,14 +169,41 @@ struct Comm {
   unsigned pending = 0;  // the slot count an allreduce_finish waits for
   bool leader;
 
-  __device__ Comm(const Common<S>& p, S* r, int thread, int64_t rows) : P(p), red(r) {
+  // rank0, timers: a launch of one card's ranks across cards (CardPart)
+  __device__ Comm(const Common<S>& p, S* r, int thread, int64_t rows, int rank0 = 0,
+                  unsigned long long* timers = nullptr)
+      : CardPart<Scope>(rank0, timers), P(p), red(r) {
     ndev = P.ndev;
     bpr = P.bpr;
     rank = blockIdx.x / bpr;
+    if constexpr (Scope == cuda::thread_scope_system) rank += this->rank0;
     lb = blockIdx.x % bpr;
     tid = thread;
     n = rows;
     leader = rank == 0 && lb == 0 && tid == 0;
+    if constexpr (Scope == cuda::thread_scope_system) {
+      if (timing()) {
+        clocks()[0] = globaltimer();
+        clocks()[1] = 0;
+      }
+    }
+  }
+
+  // Thread 0 of the rank's block 0 while the timers are on: it keeps them.
+  // Only the system-scope instances (ranks across cards) time; the
+  // device-scope ones carry no timer code.
+  __device__ bool timing() const {
+    if constexpr (Scope == cuda::thread_scope_system) {
+      return this->timers != nullptr && lb == 0 && tid == 0;
+    } else {
+      return false;
+    }
+  }
+  // The timers' start and the ns spent waiting on peers, in shared memory,
+  // so that the threads that do not keep them hold nothing for them.
+  __device__ static unsigned long long* clocks() {
+    __shared__ unsigned long long t[2];
+    return t;
   }
 
   template <typename V>
@@ -188,6 +243,9 @@ struct Comm {
           res = 0;
           break;
         }
+      }
+      if constexpr (Scope == cuda::thread_scope_system) {
+        if (timing() && (site == SITE_TABLE || site >= SITE_HALO)) clocks()[1] += globaltimer() - t0;
       }
       __threadfence();
       ok = res;
@@ -289,6 +347,13 @@ struct Comm {
       P.stats[1] = rtrans;
       P.stats[2] = S(k - 1);
       P.stats[3] = S(0);
+    }
+    if constexpr (Scope == cuda::thread_scope_system) {
+      if (timing()) {
+        unsigned long long* t = this->timers + 2 * (rank - this->rank0);
+        t[0] = clocks()[1];
+        t[1] = globaltimer() - clocks()[0];
+      }
     }
   }
 };

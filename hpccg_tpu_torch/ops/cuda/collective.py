@@ -27,9 +27,31 @@ over ``parallel.halo.BandStrips``). A wrapper runs it only when the shards
 lie on the CPU; for CUDA shards it launches the kernel or raises, and
 counts its launches in ``<wrapper>.launches`` (and those of K15/K16's
 bfloat16 instance in ``<wrapper>.launches_bf16`` too, K17's float64
-instance's in ``cg_collective_dia.launches_f64``). Every rank of a
-launch must share one card: a mesh across cards raises NotImplementedError
-(the multi-card launch, with peer pointer tables, is queued in ROADMAP).
+instance's in ``cg_collective_dia.launches_f64``).
+
+K15/K16 run a mesh on one card or across cards. On one card a solve is
+one launch of every rank, at device scope. Across cards (one group of
+consecutive ranks a card, as ``parallel.mesh`` lays them out) a solve is
+one cooperative launch per card of that card's ranks, each on its card's
+current stream, the system-scope instance (``csrc/collective.cuh``): every
+card holds its ranks' scratch and a copy of the pointer table that names
+every rank's buffers at their unified (peer) addresses, so halo pushes,
+allreduce rows and counter increments land in the reader's own memory over
+NVLink. A mesh is set up once and kept while the solves stay on it
+(``_plan_for``: peer access between every pair of its cards, each card's
+scratch and table; the span ``collective.peer_setup``); a solve writes b,
+x0 and x into the tables, zeroes each card's counters, lets every card's
+launch wait for every card's zeroing, and issues the launches without a
+host sync (the span ``collective.issue``); it then reads each card's error
+word once, after all the cards. With tracing on (``utils.trace``) the
+kernels also time, on %globaltimer, how long block 0 of each rank waits on
+its peers and runs, read in the same read as the error word and recorded
+as the counts ``collective.wait_ns`` and ``collective.kernel_ns`` per rank
+a solve (across cards only: the one-card instance carries no timers). Where two of the mesh's
+cards cannot reach each other's memory with native atomics, it raises
+ValueError; nothing falls back. K17 runs every rank of a launch on one
+card: its mesh across cards raises NotImplementedError (its multi-card
+launch is queued in ROADMAP).
 
 dtypes: K15/K16 take float32, float64 and bfloat16 (the JAX kernels run
 bf16 too: ``make_distributed_cg(backend="collective")`` has no dtype gate,
@@ -49,6 +71,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import os
 
 import torch
 
@@ -57,6 +80,7 @@ from hpccg_tpu_torch.operators import DiaRows, StencilOperator, band
 from hpccg_tpu_torch.ops.cuda.build import check_launch, load_library
 from hpccg_tpu_torch.ops.cuda.dia import MAX_DIAGS
 from hpccg_tpu_torch.ops.cuda.wholesolve import plane_dot
+from hpccg_tpu_torch.utils import trace
 
 METHODS = {"cg": 0, "cg1": 1, "pipecg": 2}
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}  # the C entry points' dtype argument
@@ -76,9 +100,11 @@ WAIT_NS = 5_000_000_000
 SITES = {1: "rank barrier", 2: "rank partials", 3: "allreduce table"}
 
 
-def _check(nrow: int, bs, x0s) -> torch.device:
+def _check(nrow: int, bs, x0s, across_cards: bool = False) -> torch.device:
     """Raise unless (bs, x0s), shards of ``nrow`` rows, are what the kernels
-    take; returns their one device."""
+    take; returns the first shard's device. Shards on several CUDA cards
+    (each rank's b and x0 on one) pass where ``across_cards`` (K15/K16),
+    else raise NotImplementedError (K17)."""
     bs, x0s = tuple(bs), tuple(x0s)
     if not bs or len(bs) != len(x0s):
         raise ValueError(f"b has {len(bs)} shards and x0 {len(x0s)}")
@@ -91,13 +117,16 @@ def _check(nrow: int, bs, x0s) -> torch.device:
                              f"{tuple(v.shape)} {v.dtype}")
     devices = {v.device for v in bs + x0s}
     if len(devices) > 1:
-        if all(d.type == "cuda" for d in devices):
-            raise NotImplementedError("the collective kernels run every rank of a launch on one card; the "
-                                      "multi-card launch (peer pointer tables) is queued in ROADMAP")
-        raise ValueError(f"the shards lie on several devices: {sorted(map(str, devices))}")
+        if not all(d.type == "cuda" for d in devices):
+            raise ValueError(f"the shards lie on several devices: {sorted(map(str, devices))}")
+        if not across_cards:
+            raise NotImplementedError("the collective DIA kernel (K17) runs every rank of a launch on one card; "
+                                      "its multi-card launch is queued in ROADMAP")
+        if any(b.device != x.device for b, x in zip(bs, x0s)):
+            raise ValueError("each rank's b and x0 must lie on one card")
     if any(b.data_ptr() == x.data_ptr() for b in bs for x in x0s):
         raise ValueError("b and x0 must not alias")
-    return devices.pop()
+    return bs[0].device
 
 
 def solve_plain(op: StencilOperator, bs, x0s, *, method: str, max_iter: int, tolerance: float = 0.0):
@@ -232,16 +261,18 @@ class CollectiveGeometry:
     blocks_per_rank: int
 
 
-def geometry(op: StencilOperator, ndev: int, dtype, method: str) -> CollectiveGeometry:
+def geometry(op: StencilOperator, ndev: int, dtype, method: str, peer: bool = False) -> CollectiveGeometry:
     """The grid of a launch of ``ndev`` ranks of op's local grid in
-    ``dtype`` on the current CUDA device: every block resident at once
-    (occupancy x SMs, shared by the ranks), a rank's blocks capped by its
-    (x-tile, y-tile, z-chunk) work items, which they take in turns. A mesh
-    larger than the resident grid raises (nothing falls back)."""
+    ``dtype`` on the current CUDA device (``peer``: the system-scope
+    instance that a mesh across cards launches, ``ndev`` its ranks on this
+    card): every block resident at once (occupancy x SMs, shared by the
+    ranks), a rank's blocks capped by its (x-tile, y-tile, z-chunk) work
+    items, which they take in turns. A mesh larger than the resident grid
+    raises (nothing falls back)."""
     lib = _library()
     out = (ctypes.c_int * 5)()
     err = lib.hpccg_collective_geometry(op.nx, op.ny, op.nz, DTYPE_CODES[dtype], op.stencil.value, METHODS[method],
-                                        ndev, ctypes.addressof(out))
+                                        ndev, int(peer), ctypes.addressof(out))
     if err == 720:  # cudaErrorCooperativeLaunchTooLarge
         raise ValueError(f"a mesh of {ndev} ranks needs at least {ndev} resident blocks of the collective kernel")
     if err != 0:
@@ -285,15 +316,37 @@ def access_bytes(nx: int, esize: int, ptrs) -> int:
     return m & -m
 
 
+def pointer_table(ranks) -> list:
+    """The NKIND x ndev pointer table (``csrc/collective.cuh``) from each
+    rank's {row: address}: ``rows[kind][r]`` is rank r's buffer of that
+    kind, 0 where it has none. It names every rank's buffers wherever they
+    lie; across cards each card holds a copy of it, the other cards'
+    buffers at their unified (peer) addresses."""
+    rows = [[0] * len(ranks) for _ in range(NKIND)]
+    for r, addresses in enumerate(ranks):
+        for kind, address in addresses.items():
+            rows[kind][r] = address
+    return rows
+
+
+def _error(word, wait_ns: int, what: str) -> None:
+    """Raise RuntimeError if an error word (set, site, rank, expected count)
+    says that a wait gave up."""
+    if word[0]:
+        site = word[1]
+        where = SITES.get(site) or f"halo of phase {(site - 16) // 2} from {'above' if site % 2 else 'below'}"
+        raise RuntimeError(f"collective kernel: a wait gave up after {wait_ns} ns ({where}, rank {word[2]}, "
+                           f"expected count {word[3]}); {what}")
+
+
 class _Scratch:
-    """The device state of one collective launch: the solve vectors, the
-    landing buffers, the partials, the allreduce tables, the counters, the
-    trace, the stats and the error word, and the pointer table that names
-    them per rank. The vectors and landing buffers are in the shards'
-    dtype, each rank's vector 16-byte aligned; the partials ``parts``
-    (shape per rank, dtype; default ``2 * bpr`` in the scalar dtype, K17's
-    block partials) and the rest in the scalar dtype (float32 for
-    bfloat16)."""
+    """The device state of one K17 launch: the solve vectors, the landing
+    buffers, the partials, the allreduce tables, the counters, the trace,
+    the stats and the error word, and the pointer table that names them per
+    rank. The vectors and landing buffers are in the shards' dtype, each
+    rank's vector 16-byte aligned; the partials ``parts`` (shape per rank,
+    dtype; default ``2 * bpr`` in the scalar dtype, K17's block partials)
+    and the rest in the scalar dtype."""
 
     def __init__(self, bs, x0s, kinds, landing_shape, bpr: int, max_iter: int, data=None, parts=None):
         dev, dtype, ndev, n = bs[0].device, bs[0].dtype, len(bs), bs[0].numel()
@@ -308,69 +361,239 @@ class _Scratch:
         self.trace = torch.full((max(max_iter, 1),), float("nan"), dtype=sdt, device=dev)
         self.stats = torch.zeros((4,), dtype=sdt, device=dev)
         self.err = torch.zeros((4,), dtype=torch.int32, device=dev)
-        rows = [[0] * ndev for _ in range(NKIND)]
+        ranks = []
         for r in range(ndev):
-            rows[P_B][r], rows[P_X0][r] = bs[r].data_ptr(), x0s[r].data_ptr()
-            for j, kind in enumerate(kinds):
-                rows[kind][r] = self.state[j, r].data_ptr()
-            rows[P_H][r] = self.landing[r].data_ptr()
-            rows[P_PARTS][r] = self.parts[r].data_ptr()
-            rows[P_TABLE][r] = self.table[r].data_ptr()
-            rows[P_CTR][r] = self.ctr[r].data_ptr()
+            rank = {P_B: bs[r].data_ptr(), P_X0: x0s[r].data_ptr(), P_H: self.landing[r].data_ptr(),
+                    P_PARTS: self.parts[r].data_ptr(), P_TABLE: self.table[r].data_ptr(),
+                    P_CTR: self.ctr[r].data_ptr()}
+            rank.update({kind: self.state[j, r].data_ptr() for j, kind in enumerate(kinds)})
             if data is not None:
-                rows[P_DATA][r] = data[r].data_ptr()
-        self.ptrs = torch.tensor(rows, dtype=torch.int64, device=dev)
+                rank[P_DATA] = data[r].data_ptr()
+            ranks.append(rank)
+        self.ptrs = torch.tensor(pointer_table(ranks), dtype=torch.int64, device=dev)
 
     def result(self, wait_ns: int, what: str):
         """Synchronises to read the error word, raises RuntimeError if a wait
         gave up, else returns the CGResult (x sharded, kinds[0] being P_X)."""
         from hpccg_tpu_torch.solver import CGResult
 
-        word = self.err.tolist()
-        if word[0]:
-            site = word[1]
-            where = SITES.get(site) or f"halo of phase {(site - 16) // 2} from {'above' if site % 2 else 'below'}"
-            raise RuntimeError(f"collective kernel: a wait gave up after {wait_ns} ns ({where}, rank {word[2]}, "
-                               f"expected count {word[3]}); {what}")
+        _error(self.err.tolist(), wait_ns, what)
         x = tuple(self.state[0, r] for r in range(self.state.shape[1]))
         stats = self.stats
         return CGResult(x=x, niters=stats[2].to(torch.int32), normr=stats[0], rtrans=stats[1], trace=self.trace)
 
 
+@dataclasses.dataclass(frozen=True)
+class RankGroup:
+    """The ranks [first, first + count) of a mesh, on one device."""
+
+    device: torch.device
+    first: int
+    count: int
+
+
+def rank_groups(devices) -> tuple:
+    """The mesh's ranks by card: each run of consecutive ranks on one
+    device is a group (one launch). Raises ValueError where a device's
+    ranks are not consecutive (``parallel.mesh`` puts a card's ranks
+    together)."""
+    groups = []
+    for r, dev in enumerate(map(torch.device, devices)):
+        if groups and groups[-1].device == dev:
+            groups[-1] = dataclasses.replace(groups[-1], count=groups[-1].count + 1)
+            continue
+        if any(g.device == dev for g in groups):
+            raise ValueError(f"the ranks on {dev} are not consecutive; a card's ranks launch together")
+        groups.append(RankGroup(dev, r, 1))
+    return tuple(groups)
+
+
+_PEERS: set = set()  # (card, peer) pairs whose peer access this process enabled
+
+
+def enable_peers(cards) -> None:
+    """Peer access, with native atomics, from each of ``cards`` (CUDA
+    device indexes) to every other: each ordered pair is enabled once a
+    process. Raises ValueError with the reason where a pair has none, or
+    where PyTorch's allocator maps memory that device-wide peer access does
+    not cover."""
+    conf = ",".join(os.environ.get(k, "") for k in ("PYTORCH_CUDA_ALLOC_CONF", "PYTORCH_ALLOC_CONF")).replace(" ", "")
+    if "expandable_segments:True" in conf or "backend:cudaMallocAsync" in conf:
+        raise ValueError(f"the collective kernels across cards need memory from cudaMalloc, which peer access "
+                         f"covers; the allocator is configured {conf!r}")
+    lib = _library()
+    for card in cards:
+        for peer in cards:
+            if card == peer or (card, peer) in _PEERS:
+                continue
+            code = lib.hpccg_peer_enable(card, peer)
+            if code == -1:
+                raise ValueError(f"cuda:{card} cannot reach the memory of cuda:{peer} (cudaDeviceCanAccessPeer): "
+                                 "the collective kernels across cards need peer access between every pair of cards")
+            if code == -2:
+                raise ValueError(f"the link from cuda:{card} to cuda:{peer} has no native atomics "
+                                 "(cudaDevP2PAttrNativeAtomicSupported): the kernels' counters need them")
+            check_launch(code, f"peer access from cuda:{card} to cuda:{peer}")
+            _PEERS.add((card, peer))
+
+
+class _Card:
+    """One card's share of a K15/K16 mesh, kept from solve to solve: its
+    ranks' state vectors but x, landing planes, partials and allreduce
+    tables, a word buffer (the error word, the timers, then each rank's
+    counters), the card's copy of the pointer table, and, across cards, the
+    event that marks its counters zeroed."""
+
+    def __init__(self, group: RankGroup, kinds, n: int, dtype, landing: int, nparts: int, ndev: int, peer: bool):
+        dev, m = group.device, group.count
+        self.group = group
+        self.state = torch.zeros((len(kinds), m, _pitch(n, dtype)), dtype=dtype, device=dev)[:, :, :n]
+        self.landing = torch.zeros((m, landing), dtype=dtype, device=dev)
+        self.parts = torch.empty((m, nparts), dtype=torch.float64, device=dev)
+        self.table = torch.zeros((m, 2, ndev, 2), dtype=scalar_dtype(dtype), device=dev)
+        self.timers = 4  # words before the timers: the error word
+        self.counters = self.timers + 4 * m  # 2 x 8 bytes of timers a rank
+        self.words = torch.zeros((self.counters + m * NCTR,), dtype=torch.int32, device=dev)
+        self.ptrs = torch.empty((NKIND, ndev), dtype=torch.int64, device=dev)
+        self.zeroed = torch.cuda.Event() if peer else None
+        self.kinds = kinds
+
+    def addresses(self, i: int) -> dict:
+        """The pointer-table rows of the card's i-th rank but b, x0 and x."""
+        out = {kind: self.state[j, i].data_ptr() for j, kind in enumerate(self.kinds)}
+        out.update({P_H: self.landing[i].data_ptr(), P_PARTS: self.parts[i].data_ptr(),
+                    P_TABLE: self.table[i].data_ptr(),
+                    P_CTR: self.words[self.counters + i * NCTR].data_ptr()})
+        return out
+
+
+class _Plan:
+    """K15/K16 set up for one mesh of CUDA shards and one method: the ranks
+    grouped by card, peer access between the cards, the geometry (the same
+    blocks a rank on every card), each card's scratch (``_Card``) and the
+    pointer table's rows that do not change between solves, in pinned host
+    memory."""
+
+    def __init__(self, op: StencilOperator, devices, dtype, method: str):
+        self.op, self.dtype, self.method = op, dtype, method
+        self.devices = tuple(map(torch.device, devices))
+        self.key = (op, tuple(devices), dtype, method)
+        self.groups = rank_groups(self.devices)
+        self.peer = len(self.groups) > 1
+        if self.peer:
+            enable_peers([g.device.index for g in self.groups])
+        grids = set()
+        for g in self.groups:
+            with torch.cuda.device(g.device):
+                grids.add(geometry(op, g.count, dtype, method, self.peer))
+        if len(grids) > 1:
+            raise ValueError(f"the cards give a rank different grids ({sorted(grids)}); the kernels need the same "
+                             "blocks a rank on every card")
+        g = grids.pop()
+        self.bpr = g.blocks_per_rank
+        tiles = -(-op.nx // g.tile_x) * -(-op.ny // g.tile_y)
+        self.plane = _pitch(op.nx * op.ny, dtype)
+        kinds = VECTORS[method][1:]  # x is the result: a new tensor every solve
+        assert VECTORS[method][0] == P_X
+        self.cards = [_Card(grp, kinds, op.local_nrow, dtype, PHASES * 2 * self.plane, 4 * tiles * op.nz,
+                            len(self.devices), self.peer) for grp in self.groups]
+        ranks = [card.addresses(i) for card in self.cards for i in range(card.group.count)]
+        self.host = torch.tensor(pointer_table(ranks), dtype=torch.int64).pin_memory()
+        lib = load_library()
+        self.fn = {torch.float32: lib.hpccg_collective_f32, torch.float64: lib.hpccg_collective_f64,
+                   torch.bfloat16: lib.hpccg_collective_bf16}[dtype]
+        self.zero = lib.hpccg_zero
+
+    def solve(self, bs, x0s, max_iter: int, tolerance: float, wait_ns: int):
+        """One launch per card (see the module docstring); reads each card's
+        error word after all the cards and raises RuntimeError if a wait
+        gave up. Returns a CGResult whose x is sharded on the ranks' cards
+        and whose scalars and trace lie on rank 0's."""
+        from hpccg_tpu_torch.solver import CGResult
+
+        op, dtype, ndev = self.op, self.dtype, len(self.devices)
+        if tuple(v.device for v in bs) != self.devices:
+            raise ValueError("the shards lie elsewhere than the mesh this solver was set up for")
+        timed = trace.enabled() and self.peer  # only the system-scope instances time
+        dev0, sdt = self.devices[0], scalar_dtype(dtype)
+        with trace.span("collective.issue"):
+            xs = tuple(torch.empty((op.local_nrow,), dtype=dtype, device=d) for d in self.devices)
+            tr = torch.full((max(max_iter, 1),), float("nan"), dtype=sdt, device=dev0)
+            stats = torch.empty((4,), dtype=sdt, device=dev0)
+            rows = self.host.numpy()
+            rows[P_B] = [v.data_ptr() for v in bs]
+            rows[P_X0] = [v.data_ptr() for v in x0s]
+            rows[P_X] = [v.data_ptr() for v in xs]
+            esize = bs[0].element_size()
+            # every state vector and landing plane lies a multiple of 16 bytes from these
+            ptrs = [c.state.data_ptr() for c in self.cards] + [c.landing.data_ptr() for c in self.cards]
+            ptrs += [x.data_ptr() for x in xs]
+            access = access_bytes(op.nx, esize, ptrs)
+            init_access = access_bytes(op.nx, esize, ptrs + [v.data_ptr() for v in bs + x0s])
+            launch.access = (access, init_access)
+            for card in self.cards:
+                with torch.cuda.device(card.group.device):
+                    stream = torch.cuda.current_stream()
+                    check_launch(self.zero(card.words.data_ptr(), card.words.numel() * 4, stream.cuda_stream),
+                                 "collective kernel (zeroing the counters)")
+                    card.ptrs.copy_(self.host, non_blocking=True)
+                    if self.peer:
+                        card.zeroed.record(stream)
+            for card in self.cards:
+                grp = card.group
+                with torch.cuda.device(grp.device):
+                    stream = torch.cuda.current_stream()
+                    for other in self.cards:
+                        if other is not card:  # a fast card signals into every card's counters
+                            stream.wait_event(other.zeroed)
+                    code = self.fn(card.ptrs.data_ptr(), tr.data_ptr(), stats.data_ptr(), card.words.data_ptr(),
+                                   int(timed), grp.first, grp.count, ndev, op.nx, op.ny, op.nz, self.plane, access,
+                                   init_access, card.parts[0].numel(), op.stencil.value, METHODS[self.method],
+                                   max_iter, float(tolerance), int(wait_ns), int(self.peer),
+                                   stream.cuda_stream)
+                if code:  # the cards launched so far give up at their waits: let them end first
+                    for c in self.cards:
+                        torch.cuda.synchronize(c.group.device)
+                check_launch(code, "collective kernel (cooperative launch)")
+        words = [card.words[:card.counters if timed else card.timers].cpu() for card in self.cards]
+        for w in words:
+            _error(w[:4].tolist(), wait_ns, f"{ndev} ranks x {self.bpr} blocks on {len(self.cards)} card(s)")
+        if timed:
+            for card, w in zip(self.cards, words):
+                t = w[card.timers:].view(torch.int64).tolist()
+                for i in range(card.group.count):
+                    trace.count("collective.wait_ns", card.group.first + i, t[2 * i])
+                    trace.count("collective.kernel_ns", card.group.first + i, t[2 * i + 1])
+        return CGResult(x=xs, niters=stats[2].to(torch.int32), normr=stats[0], rtrans=stats[1], trace=tr)
+
+
+_plan = None  # the mesh set up last (_plan_for)
+
+
+def _plan_for(op: StencilOperator, devices, dtype, method: str) -> _Plan:
+    """K15/K16's set-up for a mesh of CUDA shards, kept from solve to
+    solve: built (inside the span ``collective.peer_setup``) on the first
+    solve, and again only when a solve's operator, devices, dtype or method
+    differ from the last set-up's, whose scratch it frees first."""
+    global _plan
+    key = (op, tuple(devices), dtype, method)
+    if _plan is None or _plan.key != key:
+        _plan = None
+        with trace.span("collective.peer_setup"):
+            _plan = _Plan(op, key[1], dtype, method)
+    return _plan
+
+
 def launch(op: StencilOperator, bs, x0s, *, method: str, max_iter: int, tolerance: float = 0.0,
            wait_ns: int = WAIT_NS):
-    """One cooperative launch of the collective kernel for every rank, on
-    the shards' card and the current stream; synchronises to read the
-    kernel's error word and raises RuntimeError if a wait gave up. Records
-    the access widths in bytes of the march (state vectors and landing
-    planes; with b and x0 at the init) in ``launch.access``. Returns a
-    CGResult."""
-    dev = bs[0].device
-    dtype = bs[0].dtype
-    ndev = len(bs)
-    with torch.cuda.device(dev):
-        g = geometry(op, ndev, dtype, method)
-    tiles = -(-op.nx // g.tile_x) * -(-op.ny // g.tile_y)
-    plane = _pitch(op.nx * op.ny, dtype)
-    # per rank: two rounds (by parity) of two dots of (tile, plane) partials
-    sc = _Scratch(bs, x0s, VECTORS[method], (PHASES * 2 * plane,), g.blocks_per_rank, max_iter,
-                  parts=((4 * tiles * op.nz,), torch.float64))
-    esize = bs[0].element_size()
-    # every state vector and landing plane lies a multiple of 16 bytes from these
-    ptrs = [sc.state.data_ptr(), sc.landing.data_ptr()]
-    access = access_bytes(op.nx, esize, ptrs)
-    init_access = access_bytes(op.nx, esize, ptrs + [v.data_ptr() for v in bs + x0s])
-    launch.access = (access, init_access)
-    lib = load_library()
-    fn = {torch.float32: lib.hpccg_collective_f32, torch.float64: lib.hpccg_collective_f64,
-          torch.bfloat16: lib.hpccg_collective_bf16}[dtype]
-    # the C entry points launch on the current device, which must be the stream's
-    with torch.cuda.device(dev):
-        code = fn(sc.ptrs.data_ptr(), sc.trace.data_ptr(), sc.stats.data_ptr(), sc.err.data_ptr(), ndev, op.nx,
-                  op.ny, op.nz, plane, access, init_access, sc.parts[0].numel(), op.stencil.value, METHODS[method],
-                  max_iter, float(tolerance), int(wait_ns), torch.cuda.current_stream(dev).cuda_stream)
-    check_launch(code, "collective kernel (cooperative launch)")
-    return sc.result(wait_ns, f"{ndev} ranks x {g.blocks_per_rank} blocks")
+    """One solve of the collective kernel for every rank: one cooperative
+    launch on the shards' card, or one per card across cards, each on its
+    card's current stream (``_Plan.solve``); reads the kernels' error words
+    and raises RuntimeError if a wait gave up. Records the access widths in
+    bytes of the march (state vectors and landing planes; with b and x0 at
+    the init) in ``launch.access``. Returns a CGResult."""
+    plan = _plan_for(op, [v.device for v in bs], bs[0].dtype, method)
+    return plan.solve(bs, x0s, max_iter, tolerance, wait_ns)
 
 
 launch.access = None
@@ -379,19 +602,22 @@ launch.access = None
 def _solve(wrapper, op, bs, x0s, method, max_iter, tolerance):
     if method not in METHODS:
         raise ValueError(f"unknown CG method {method!r}")
-    dev = _check(op.local_nrow, bs, x0s)
+    bs, x0s = tuple(bs), tuple(x0s)
+    dev = _check(op.local_nrow, bs, x0s, across_cards=True)
     if dev.type == "cpu":
-        return solve_plain(op, bs, x0s, method=method, max_iter=max_iter, tolerance=tolerance)
-    res = launch(op, tuple(bs), tuple(x0s), method=method, max_iter=max_iter, tolerance=tolerance)
-    wrapper.launches += 1
+        with trace.span("collective.issue"):
+            return solve_plain(op, bs, x0s, method=method, max_iter=max_iter, tolerance=tolerance)
+    res = launch(op, bs, x0s, method=method, max_iter=max_iter, tolerance=tolerance)
+    cards = len(_plan.cards)
+    wrapper.launches += cards
     if bs[0].dtype == torch.bfloat16:
-        wrapper.launches_bf16 += 1
+        wrapper.launches_bf16 += cards
     return res
 
 
 def cg_collective(op: StencilOperator, bs, x0s, *, method: str = "cg1", max_iter: int, tolerance: float = 0.0):
-    """K15: the whole multi-rank solve in one launch, method ``cg`` or
-    ``cg1`` (plain on the CPU). Returns a CGResult with sharded x."""
+    """K15: the whole multi-rank solve in one launch per card, method ``cg``
+    or ``cg1`` (plain on the CPU). Returns a CGResult with sharded x."""
     if method not in ("cg", "cg1"):
         raise ValueError(f"K15 runs methods cg and cg1, got {method!r} (pipecg is K16)")
     return _solve(cg_collective, op, bs, x0s, method, max_iter, tolerance)
@@ -401,8 +627,8 @@ cg_collective.launches = cg_collective.launches_bf16 = 0
 
 
 def cg_collective_pipelined(op: StencilOperator, bs, x0s, *, max_iter: int, tolerance: float = 0.0):
-    """K16: the whole multi-rank pipelined CG solve in one launch (plain on
-    the CPU). Returns a CGResult with sharded x."""
+    """K16: the whole multi-rank pipelined CG solve in one launch per card
+    (plain on the CPU). Returns a CGResult with sharded x."""
     return _solve(cg_collective_pipelined, op, bs, x0s, "pipecg", max_iter, tolerance)
 
 

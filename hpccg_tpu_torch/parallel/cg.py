@@ -10,8 +10,9 @@ SpMV, three vector updates. The JAX package runs the same recurrences under
 shard_map; here one process drives every rank.
 
 ``backend="collective"`` runs the whole solve of every rank in one launch
-of K15 (cg, cg1) or K16 (pipecg) (``ops/cuda/collective.py``): halo planes
-and the allreduce travel through memory inside the kernel.
+of K15 (cg, cg1) or K16 (pipecg) (``ops/cuda/collective.py``), or across
+cards in one launch per card: halo planes and the allreduce travel through
+memory inside the kernel, between cards over peer memory.
 
 Distributed file mode (ref main.cpp:161-179: read_HPC_row ->
 make_local_matrix -> MPI CG) solves a loaded explicit matrix with its rows
@@ -140,7 +141,8 @@ def make_distributed_cg(
     Backends: ``stencil`` (plain torch), ``pallas`` (K2 with halo planes),
     ``pallas_dd`` (K7, float64), ``pallas_v1`` (K1 and torch dots),
     ``pallas_fused`` (K3 with four planes, K4), ``collective`` (the whole
-    solve in one launch of K15/K16); ``auto`` as resolve_distributed_backend.
+    solve in one launch of K15/K16 per card, the mesh set up on the first
+    solve); ``auto`` as resolve_distributed_backend.
     bf16 shards (and halo planes) run on every backend but ``pallas_dd``,
     with float32 scalars on the kernel backends, as on one device
     (``collective``: K15/K16's bf16 instance, its plain version on the
@@ -459,8 +461,8 @@ def make_distributed_ell_halo_cg(mesh: Mesh, *, max_iter: int, tolerance: float 
     return solve
 
 
-ACROSS_CARDS = ("the collective kernels run every rank of a launch on one card; the multi-card launch is queued "
-                "in ROADMAP")
+ACROSS_CARDS = ("the collective DIA kernel (K17) runs every rank of a launch on one card; its multi-card launch is "
+                "queued in ROADMAP")
 
 
 def collective_dia_supported(A, mesh: Mesh, method: str = "cg1"):

@@ -17,6 +17,14 @@ also a ``torch.profiler.record_function`` range, so it lies on the
 profiler's timeline beside the device's events; outside a profiler a span
 costs two clock reads and a record.
 
+``count(name, rank, value)`` records a number the program measured, such
+as the collective kernels' per-rank wait and kernel nanoseconds
+(``collective.wait_ns``, ``collective.kernel_ns``, one of each per rank a
+solve), as a :class:`Count` stamped with ``time.perf_counter_ns``. Counts
+live in a store of their own beside the spans: ``take_counts()`` hands them
+over and clears it, and ``take()`` never sees them. Off, ``count`` records
+nothing and reads no clock.
+
 The recorder is one per process, as torch.profiler is: the spans sit in
 library functions that take no recorder argument. Spans nest within one
 thread.
@@ -39,10 +47,18 @@ class Span(NamedTuple):
     end: int
 
 
+class Count(NamedTuple):
+    name: str
+    rank: int
+    value: int
+    at: int  # ns, time.perf_counter_ns when recorded
+
+
 _OFF = nullcontext()
 _on = False
 _records: list = []
 _open: list = []  # the open spans, innermost last
+_counts: list = []
 
 
 class _Open:
@@ -102,6 +118,20 @@ def take() -> list:
     its place in the list taken (None) until it ends."""
     global _records
     out, _records = _records, []
+    return out
+
+
+def count(name: str, rank: int, value: int) -> None:
+    """Record ``value`` of ``name`` for ``rank`` while tracing is on."""
+    if _on:
+        _counts.append(Count(name, rank, int(value), perf_counter_ns()))
+
+
+def take_counts() -> list:
+    """The counts recorded since the last ``take_counts()``, in order;
+    clears the store."""
+    global _counts
+    out, _counts = _counts, []
     return out
 
 

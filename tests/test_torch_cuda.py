@@ -601,8 +601,10 @@ def test_collective_bounded_wait_raises(cuda_device):
 
 def test_collective_refuses_bf16_and_several_cards(cuda_device):
     """K15/K16 have a bf16 instance now (test_bf16_collective_matches_plain):
-    float16, which has none, raises TypeError; so does a mesh across
-    cards."""
+    float16, which has none, raises TypeError. Across cards they run
+    (test_collective_across_cards_matches_one_card), but refuse shards whose
+    rank's b and x0 lie on two cards, and a card whose ranks are not
+    consecutive: ValueError."""
     _, prob = _sharded(cuda_device, 2, (6, 5, 4), torch.float32)
     op = StencilOperator(6, 5, 4, dtype=torch.float32)
     half = tuple(v.to(torch.float16) for v in prob.b)
@@ -610,8 +612,92 @@ def test_collective_refuses_bf16_and_several_cards(cuda_device):
         col.cg_collective(op, half, tuple(v.clone() for v in half), max_iter=5)
     if torch.cuda.device_count() > 1:
         other = (prob.b[0], prob.b[1].to("cuda:1"))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            col.cg_collective(StencilOperator(6, 5, 4, dtype=torch.float32), other, other, max_iter=5)
+        with pytest.raises(ValueError, match="one card"):
+            col.cg_collective(op, other, (prob.x0[0], prob.x0[1].clone()), max_iter=5)
+        apart = tuple(v.to(d) for v, d in zip(prob.b + prob.b[:1], ("cuda:0", "cuda:1", "cuda:0")))
+        with pytest.raises(ValueError, match="not consecutive"):
+            col.cg_collective(op, apart, tuple(v.clone() for v in apart), max_iter=5)
+
+
+def _cards(count: int):
+    if torch.cuda.device_count() < count:
+        pytest.skip(f"needs {count} NVIDIA GPUs")
+    return [torch.device("cuda", i) for i in range(count)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("method", ["cg", "cg1", "pipecg"])
+@pytest.mark.parametrize("cards", ["2", "all"])
+def test_collective_across_cards_matches_one_card(cuda_device, cards, method, dtype):
+    """The same ranks launched one per card (the system-scope instance, one
+    launch per card) and all on cuda:0 (one launch): niters equal, the trace
+    and x within 1e-12 relative (the dots are summed in the same order, so
+    they agree to the bit), one launch counted per card, x on its rank's
+    card; 64^3 per rank, 40 iterations."""
+    devices = _cards(2 if cards == "2" else max(torch.cuda.device_count(), 2))
+    ndev = len(devices)
+    cfg = ProblemConfig(64, 64, 64, dtype=dtype)
+    one = generate_problem_sharded(cfg, make_mesh(ndev, devices=[devices[0]] * ndev))
+    spread = make_mesh(devices=devices)
+    b, x0 = tuple(v.to(d) for v, d in zip(one.b, devices)), tuple(v.to(d) for v, d in zip(one.x0, devices))
+    kw = dict(max_iter=40, backend="collective", method=method)
+    want = make_distributed_cg(cfg, make_mesh(ndev, devices=[devices[0]] * ndev), **kw)(one.b, one.x0)
+    kern = col.cg_collective_pipelined if method == "pipecg" else col.cg_collective
+    before = kern.launches
+    got = make_distributed_cg(cfg, spread, **kw)(b, x0)
+    for d in devices:
+        torch.cuda.synchronize(d)
+    assert kern.launches == before + ndev
+    assert int(got.niters) == int(want.niters) == 39
+    torch.testing.assert_close(got.trace, want.trace, rtol=1e-12, atol=0, equal_nan=True)
+    assert [x.device for x in got.x] == devices
+    torch.testing.assert_close(torch.cat([x.to(devices[0]) for x in got.x]), torch.cat(want.x), rtol=1e-12, atol=0)
+
+
+def test_collective_across_cards_reuses_its_set_up_and_times_its_waits(cuda_device):
+    """make_distributed_cg sets a mesh across cards up once (one
+    ``collective.peer_setup`` span) and issues each solve in one
+    ``collective.issue`` span; with tracing on each rank's block 0 reports
+    its wait on peers and its kernel time, wait below kernel; off, nothing
+    is recorded. Solves repeat to the bit."""
+    from hpccg_tpu_torch.utils import trace
+
+    devices = _cards(2)
+    cfg = ProblemConfig(32, 32, 16)
+    mesh = make_mesh(devices=devices)
+    prob = generate_problem_sharded(cfg, mesh)
+    solve = make_distributed_cg(cfg, mesh, max_iter=30, backend="collective", method="cg")
+    col._plan = None  # no mesh set up before
+    trace.take(), trace.take_counts()
+    trace.enable()
+    try:
+        runs = [solve(prob.b, prob.x0) for _ in range(3)]
+    finally:
+        trace.disable()
+    spans, counts = trace.take(), trace.take_counts()
+    assert [s.name for s in spans] == ["collective.peer_setup"] + ["collective.issue"] * 3
+    waits = [c.value for c in counts if c.name == "collective.wait_ns"]
+    kernels = [c.value for c in counts if c.name == "collective.kernel_ns"]
+    assert len(waits) == len(kernels) == 3 * len(devices)
+    assert all(0 <= w < k for w, k in zip(waits, kernels))
+    assert all(torch.equal(a, b) for r in runs[1:] for a, b in zip(r.x, runs[0].x))
+    solve(prob.b, prob.x0)
+    assert trace.take() == [] and trace.take_counts() == []
+
+
+def test_collective_across_cards_bounded_wait_raises(cuda_device):
+    """Across two cards with waits of 0 ns: RuntimeError with the error
+    word, no hang; both cards stay usable."""
+    devices = _cards(2)
+    cfg = ProblemConfig(33, 17, 9, dtype=torch.float32)
+    prob = generate_problem_sharded(cfg, make_mesh(devices=devices))
+    op = StencilOperator(33, 17, 9, dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="gave up after 0 ns"):
+        col.launch(op, prob.b, prob.x0, method="cg1", max_iter=30, wait_ns=0)
+    for d in devices:
+        torch.cuda.synchronize(d)
+    res = col.cg_collective(op, prob.b, prob.x0, method="cg1", max_iter=5)
+    assert int(res.niters) == 4
 
 
 @pytest.mark.parametrize("backend", ["pallas", "pallas_dd", "pallas_v1", "pallas_fused"])
@@ -651,7 +737,8 @@ def test_one_reduction_methods_on_the_card(cuda_device, method):
 def test_distributed_backends_across_cards(cuda_device):
     """One rank per card (needs two or more): the kernel wrappers launch on
     their tensors' card (a launch on the current card with another card's
-    stream failed before), and collective refuses a mesh across cards."""
+    stream failed before), and collective runs the mesh across cards, one
+    launch per card."""
     n = torch.cuda.device_count()
     if n < 2:
         pytest.skip("needs two or more NVIDIA GPUs")
@@ -663,8 +750,14 @@ def test_distributed_backends_across_cards(cuda_device):
         res = make_distributed_cg(cfg, mesh, max_iter=500, tolerance=1e-10, backend=backend)(prob.b, prob.x0)
         assert int(res.niters) == int(ref.niters) < 499
         assert [x.device for x in res.x] == list(mesh.devices)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_distributed_cg(cfg, mesh, max_iter=5, backend="collective")(prob.b, prob.x0)
+    for method in ("cg", "cg1"):
+        kw = dict(max_iter=500, tolerance=1e-10, method=method)
+        want = make_distributed_cg(cfg, mesh, backend="stencil", **kw)(prob.b, prob.x0)
+        res = make_distributed_cg(cfg, mesh, backend="collective", **kw)(prob.b, prob.x0)
+        assert int(res.niters) == int(want.niters) < 499
+        assert [x.device for x in res.x] == list(mesh.devices)
+        torch.testing.assert_close(torch.cat([x.to(mesh.devices[0]) for x in res.x]),
+                                   torch.cat([x.to(mesh.devices[0]) for x in want.x]), rtol=1e-8, atol=0)
 
 
 # ------------------------------- distributed file mode: K9/K10's window, K17
